@@ -1,0 +1,177 @@
+"""Weight bridge into the port's modules.
+
+Two sources:
+
+- JAX parameter pytrees of ``onepose_tpu`` (as numpy or array-likes):
+  conv weights HWIO → OIHW, dense ``[cin, cout]`` → ``nn.Linear``
+  ``[cout, cin]``, GATs ``W [d, d]`` and ``a [2d, 1]`` as they are;
+- reference PyTorch state dicts (``superpoint_v1.pth``, ``GATsSPG.ckpt``),
+  in the role of ``onepose_tpu/models/convert.py``: Conv1d ``[out, in, 1]``
+  → ``nn.Linear`` ``[out, in]``, SuperPoint's names load as they are.
+
+``init_superpoint_params`` and ``init_gats_spg_params`` make seeded random
+weights in the JAX layout with numpy alone, with the JAX package's init
+schemes, so that a machine without JAX can build the models.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from onepose_tpu_torch.models.gats_spg import DEFAULT_CONFIG as GATS_CONFIG
+from onepose_tpu_torch.models.gats_spg import GATsSPG
+from onepose_tpu_torch.models.superpoint import (ENCODER_CHANNELS, HEADS,
+                                                 SuperPoint)
+
+SUPERPOINT_CONVS = tuple(e[0] for e in ENCODER_CHANNELS if e[0] != "pool") \
+    + tuple(h[0] for h in HEADS) + ("convDb",)
+
+
+def _t(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).cpu()
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+# ---------------------------------------------------------------------------
+# JAX layout → port
+# ---------------------------------------------------------------------------
+
+def superpoint_from_jax(params: Mapping) -> SuperPoint:
+    """``onepose_tpu.models.superpoint`` params → :class:`SuperPoint`."""
+    dim = np.shape(params["convDb"]["w"])[-1]
+    sd = {}
+    for name in SUPERPOINT_CONVS:
+        sd[f"{name}.weight"] = _t(params[name]["w"]).permute(3, 2, 0, 1)
+        sd[f"{name}.bias"] = _t(params[name]["b"])
+    model = SuperPoint(dim)
+    model.load_state_dict(sd)
+    return model.eval()
+
+
+def _linear(prefix: str, p: Mapping) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(p["w"]).T, f"{prefix}.bias": _t(p["b"])}
+
+
+def gats_spg_from_jax(params: Mapping) -> GATsSPG:
+    """``onepose_tpu.models.gats_spg`` params → :class:`GATsSPG`."""
+    layers = params["gnn"]
+    d = np.shape(params["final_proj"]["w"])[0]
+    sd = _linear("final_proj", params["final_proj"])
+    for i, p in enumerate(layers):
+        base = f"gnn.{i}"
+        if i % 3 == 0:
+            sd[f"{base}.W"] = _t(p["W"])
+            sd[f"{base}.a"] = _t(p["a"])
+        else:
+            for name in ("proj_q", "proj_k", "proj_v", "merge", "mlp0",
+                         "mlp1"):
+                sd.update(_linear(f"{base}.{name}", p[name]))
+    model = GATsSPG(d, len(layers) // 3)
+    model.load_state_dict(sd)
+    return model.eval()
+
+
+# ---------------------------------------------------------------------------
+# Reference torch checkpoints → port
+# ---------------------------------------------------------------------------
+
+def load_state_dict(path: str, strip_prefixes=("matcher.", "model.")):
+    """Load a .pth/.ckpt file into a flat state dict of tensors, with the
+    given key prefixes stripped (the reference loader's convention)."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    sd = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
+    out = {}
+    for k, v in sd.items():
+        for p in strip_prefixes:
+            if k.startswith(p):
+                k = k[len(p):]
+        out[k] = v
+    return out
+
+
+def superpoint_from_state_dict(sd: Mapping) -> SuperPoint:
+    """Reference ``superpoint_v1.pth`` keys → :class:`SuperPoint`."""
+    dim = sd["convDb.weight"].shape[0]
+    model = SuperPoint(dim)
+    model.load_state_dict({
+        f"{n}.{k}": _t(sd[f"{n}.{k}"])
+        for n in SUPERPOINT_CONVS for k in ("weight", "bias")})
+    return model.eval()
+
+
+def gats_spg_from_state_dict(sd: Mapping, num_blocks: int = 4) -> GATsSPG:
+    """Reference ``GATsSPG.ckpt`` keys (``matcher.`` already stripped) →
+    :class:`GATsSPG`."""
+    def conv1d(prefix: str, name: str):
+        return {f"{prefix}.weight": _t(sd[f"{name}.weight"])[:, :, 0],
+                f"{prefix}.bias": _t(sd[f"{name}.bias"])}
+
+    out = conv1d("final_proj", "final_proj")
+    for i in range(3 * num_blocks):
+        ref, base = f"gnn.layers.{i}", f"gnn.{i}"
+        if i % 3 == 0:
+            out[f"{base}.W"] = _t(sd[f"{ref}.W"])
+            out[f"{base}.a"] = _t(sd[f"{ref}.a"])
+            continue
+        for j, name in enumerate(("proj_q", "proj_k", "proj_v")):
+            out.update(conv1d(f"{base}.{name}", f"{ref}.attn.proj.{j}"))
+        out.update(conv1d(f"{base}.merge", f"{ref}.attn.merge"))
+        # mlp Sequential: [Conv1d, InstanceNorm1d (no params), ReLU, Conv1d]
+        out.update(conv1d(f"{base}.mlp0", f"{ref}.mlp.0"))
+        out.update(conv1d(f"{base}.mlp1", f"{ref}.mlp.3"))
+    model = GATsSPG(out["final_proj.weight"].shape[0], num_blocks)
+    model.load_state_dict(out)
+    return model.eval()
+
+
+# ---------------------------------------------------------------------------
+# Seeded init in the JAX layout, numpy only
+# ---------------------------------------------------------------------------
+
+def init_superpoint_params(rng: np.random.Generator,
+                           descriptor_dim: int = 256) -> Dict:
+    """He-normal convs (HWIO) with zero biases, the JAX package's scheme."""
+    def conv(cin, cout, k):
+        w = rng.standard_normal((k, k, cin, cout), np.float32)
+        w *= np.float32(np.sqrt(2.0 / (cin * k * k)))
+        return {"w": w, "b": np.zeros(cout, np.float32)}
+
+    params = {e[0]: conv(e[1], e[2], 3)
+              for e in ENCODER_CHANNELS if e[0] != "pool"}
+    for name, cin, cout, k in HEADS:
+        params[name] = conv(cin, cout, k)
+    params["convDb"] = conv(256, descriptor_dim, 1)
+    return params
+
+
+def init_gats_spg_params(rng: np.random.Generator,
+                         config: Optional[dict] = None) -> Dict:
+    """Kaiming-uniform dense layers ([cin, cout]) and xavier-normal GATs
+    weights (gain 1.414), the JAX package's scheme."""
+    cfg = dict(GATS_CONFIG)
+    cfg.update(config or {})
+    d = cfg["descriptor_dim"]
+
+    def dense(cin, cout):
+        bound = np.float32(np.sqrt(1.0 / cin))
+        return {"w": rng.uniform(-bound, bound, (cin, cout)).astype(np.float32),
+                "b": rng.uniform(-bound, bound, cout).astype(np.float32)}
+
+    def gats():
+        std_w = 1.414 * np.sqrt(2.0 / (d + d))
+        std_a = 1.414 * np.sqrt(2.0 / (2 * d + 1))
+        return {"W": (std_w * rng.standard_normal((d, d))).astype(np.float32),
+                "a": (std_a * rng.standard_normal((2 * d, 1))
+                      ).astype(np.float32)}
+
+    def attn():
+        return {"proj_q": dense(d, d), "proj_k": dense(d, d),
+                "proj_v": dense(d, d), "merge": dense(d, d),
+                "mlp0": dense(2 * d, 2 * d), "mlp1": dense(2 * d, d)}
+
+    layers = [gats() if i % 3 == 0 else attn()
+              for i in range(3 * cfg["num_blocks"])]
+    return {"gnn": layers, "final_proj": dense(d, d)}

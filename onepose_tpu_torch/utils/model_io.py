@@ -1,0 +1,34 @@
+"""Model loading for the port: reference PyTorch checkpoints
+(``superpoint_v1.pth``, ``GATsSPG.ckpt``) into the port's modules, with
+the reference loader's prefix stripping (``extractor.``, ``matcher.``).
+
+The JAX package's native orbax checkpoints need JAX to read and are not
+loaded here.
+"""
+from __future__ import annotations
+
+from onepose_tpu_torch.models import convert
+from onepose_tpu_torch.models.gats_spg import GATsSPG
+from onepose_tpu_torch.models.superpoint import SuperPoint
+
+TORCH_SUFFIXES = (".pth", ".ckpt", ".pt")
+
+
+def _check_torch_ckpt(path: str) -> None:
+    if not path.endswith(TORCH_SUFFIXES):
+        raise ValueError(
+            f"{path}: the PyTorch port loads {'/'.join(TORCH_SUFFIXES)} "
+            "checkpoints only")
+
+
+def load_superpoint(path: str) -> SuperPoint:
+    _check_torch_ckpt(path)
+    return convert.superpoint_from_state_dict(
+        convert.load_state_dict(path, strip_prefixes=("extractor.",)))
+
+
+def load_gats_spg(path: str, num_blocks: int = 4) -> GATsSPG:
+    _check_torch_ckpt(path)
+    return convert.gats_spg_from_state_dict(
+        convert.load_state_dict(path, strip_prefixes=("matcher.",)),
+        num_blocks)
