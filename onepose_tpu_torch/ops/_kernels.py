@@ -28,20 +28,23 @@ _F = ctypes.c_float
 # C entry points: argument types; each returns a cudaError_t as int.
 _SIGNATURES = {
     "stem_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "match_stats": [_P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],
-    "match_argmax": [_P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P,
-                     _P, _P, _P, _P, _P],
+    "match_forward": [_P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None
 
 
-def _nvcc() -> str:
+def cuda_home() -> str:
+    """Root of the CUDA toolkit that builds the kernels."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found (set CUDA_HOME)")
-    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
+    return CUDA_HOME
+
+
+def _nvcc() -> str:
+    nvcc = Path(cuda_home()) / "bin" / "nvcc"
     if not nvcc.exists():
         raise RuntimeError(f"nvcc not found at {nvcc}")
     return str(nvcc)
@@ -87,6 +90,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.match_workspace_bytes.argtypes = [_I, _I, _I, _I]
+        lib.match_workspace_bytes.restype = ctypes.c_size_t
         lib.onepose_cuda_error_string.argtypes = [ctypes.c_int]
         lib.onepose_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -6,8 +6,10 @@ JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances: the stem within the fused-stem gate's max|Δ| < 1e-4·max(|ref|,
-1) (fp32 FMA in another order, no TF32); the match indices equal except
-where conf's top-2 gap is below 1e-6, max values within 1e-6."""
+1) (fp32 FMA in another order, no TF32); the match kernel under
+``match.match_gate``: each max conf within GATE_REL = 3e-5 of the plain
+max of its row or column, indices equal except in relative near-ties
+(fp32-class products agree to about 1e-5, TF32 ones do not)."""
 import numpy as np
 import pytest
 import torch
@@ -64,24 +66,15 @@ def _unit(rng, shape, dev):
 
 def _check_match(d0, d1, scale=0.07):
     got = match.dual_softmax_argmax(d0, d1, scale)
-    ref = match.match_reference(d0, d1, scale)
-    s = torch.einsum("bnd,bmd->bnm", d0, d1) / scale
-    conf = torch.softmax(s, 1) * torch.softmax(s, 2)
-    top_r = conf.topk(min(2, conf.shape[2]), dim=2).values
-    top_c = conf.topk(min(2, conf.shape[1]), dim=1).values
-    tie_r = (top_r[..., 0] - top_r[..., -1]) < 1e-6
-    tie_c = (top_c[:, 0] - top_c[:, -1]) < 1e-6
     assert got[0].dtype == got[2].dtype == torch.int32
-    assert not ((got[0] != ref[0]) & ~tie_r).any()
-    assert not ((got[2] != ref[2]) & ~tie_c).any()
-    assert float((got[1] - ref[1]).abs().max()) < 1e-6
-    assert float((got[3] - ref[3]).abs().max()) < 1e-6
+    gate = match.match_gate(got, d0, d1, scale)
+    assert gate.ok, gate
     return got
 
 
 @pytest.mark.parametrize("b,n1,n2,d", [
     (2, 200, 144, 32), (1, 70, 48, 16), (2, 1000, 1990, 256),
-    (1, 1, 3, 256), (1, 65, 129, 40)])
+    (1, 1, 3, 256), (1, 65, 129, 40), (1, 50, 300, 13)])
 def test_match_kernel_matches_plain(cuda, b, n1, n2, d):
     rng = np.random.default_rng(n1)
     before = match.dual_softmax_argmax.launches
@@ -89,16 +82,59 @@ def test_match_kernel_matches_plain(cuda, b, n1, n2, d):
     assert match.dual_softmax_argmax.launches == before + 1
 
 
-def test_match_kernel_first_index_wins_ties(cuda):
-    """Duplicated rows and columns make exact ties: the lower index wins
-    in both argmaxes, however the blocks happen to be scheduled."""
+@pytest.mark.parametrize("n0,n1,copies,extra", [
+    (70, 100, 2, 0),     # ties inside one tile
+    (128, 128, 3, 5),    # ties at offsets of one and two 128-wide tiles
+])
+def test_match_kernel_first_index_wins_ties(cuda, n0, n1, copies, extra):
+    """Rows repeated every n0 and columns every n1 make exact ties: the
+    lower index wins in both argmaxes, however the blocks happen to be
+    scheduled. With n0 = n1 = 128 (the kernel's tile) the tied entries sit
+    at the same place in different tiles, and there are four tiles on each
+    side."""
     rng = np.random.default_rng(3)
-    d0 = _unit(rng, (1, 70, 64), cuda)
-    d1 = _unit(rng, (1, 100, 64), cuda)
-    d0 = torch.cat([d0, d0], 1)
-    d1 = torch.cat([d1, d1], 1)
-    idx0, _, idx1, _ = match.dual_softmax_argmax(d0, d1, 0.07)
-    assert (idx0 < 100).all() and (idx1 < 70).all()
+    d0 = torch.cat([_unit(rng, (1, n0, 64), cuda)] * copies
+                   + [_unit(rng, (1, extra, 64), cuda)], 1)
+    d1 = torch.cat([_unit(rng, (1, n1, 64), cuda)] * copies
+                   + [_unit(rng, (1, extra, 64), cuda)], 1)
+    idx0, _, idx1, _ = _check_match(d0, d1)
+    dup_col = (idx0 >= n1) & (idx0 < copies * n1)
+    dup_row = (idx1 >= n0) & (idx1 < copies * n0)
+    assert not dup_col.any() and not dup_row.any()
+    # the ties were exercised: most argmaxes fall in the repeated block
+    assert float((idx0 < n1).float().mean()) > 0.9
+    assert float((idx1 < n0).float().mean()) > 0.9
+
+
+def test_match_gate_refuses_tf32_matmul(cuda):
+    """The plain version with TF32 matmuls allowed is not fp32-class, and
+    the gate says so."""
+    rng = np.random.default_rng(5)
+    d0, d1 = _unit(rng, (2, 300, 256), cuda), _unit(rng, (2, 500, 256), cuda)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        got = match.match_reference(d0, d1, 0.07)
+    finally:
+        pin_fp32()
+    gate = match.match_gate(got, d0, d1, 0.07)
+    assert not gate.ok and gate.max_rel_err > match.GATE_REL, gate
+
+
+def test_match_wrapper_refuses_bad_input(cuda):
+    d = _unit(np.random.default_rng(6), (1, 64, 256), cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        match.dual_softmax_argmax(d.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), d, 0.07)
+    with pytest.raises(ValueError, match="float32"):
+        match.dual_softmax_argmax(d.double(), d, 0.07)
+    buf = torch.empty(64 * 256 + 1, device=cuda)
+    shifted = buf[1:].view(1, 64, 256)
+    shifted.copy_(d)
+    with pytest.raises(ValueError, match="aligned"):
+        match.dual_softmax_argmax(d, shifted, 0.07)
+    before = match.dual_softmax_argmax.launches
+    match.dual_softmax_argmax(d, d, 0.07)
+    assert match.dual_softmax_argmax.launches == before + 1
 
 
 def test_pipeline_on_card_matches_cpu(cuda):
