@@ -9,9 +9,12 @@ and runs seven phases; weights and inputs come from fixed seeds.
 
   1. card name and power limit (nvidia-smi);
   2. kernel build time, ptxas register use, and the count of tensor-core
-     instructions (HGMMA) in the library, which must not be 0;
+     instructions (HGMMA) in each kernel's own SASS, which must not be 0
+     for the stem or the match kernel;
   3. stem kernel vs its plain PyTorch version at [8,512,512,1] and at
-     [2,64,128,1], max|Δ| < 1e-4·max(|ref|, 1), and both times;
+     [2,64,128,1], max|Δ| < 1e-4·max(|ref|, 1), and both times; beside
+     it the kernel's, plain fp32's and cuDNN-with-TF32's error against an
+     fp64 reference, and the kernel's bound;
   4. match kernel vs its plain version at [8,1024,256]x[8,2000,256] and
      ragged [2,1000,256]x[2,1990,256], each on random unit descriptors and
      on peaked ones (DB slots j < N1 hold noisy copies of query j), under
@@ -48,6 +51,9 @@ import numpy as np
 import torch
 
 STEM_TOL = 1e-4        # relative to max(|ref|, 1): the fused-stem gate's
+# NVIDIA H100 SXM peaks (data sheet, dense): TF32 tensor cores, fp32 FMA on
+# the CUDA cores, HBM bytes/s
+PEAK_TF32, PEAK_FP32, PEAK_BYTES = 495e12, 67e12, 3.35e12
 POSE_DEG, POSE_CM = 0.5, 0.5
 PARITY_DEG, PARITY_CM = 0.05, 0.05   # card vs CPU pose agreement
 
@@ -155,18 +161,21 @@ class Smoke:
         for line in path.with_name(path.name + ".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("   ptxas: " + line.strip())
-        # tensor-core instructions in the library: HGMMA is wgmma's SASS
+        # tensor-core instructions per kernel: HGMMA is wgmma's SASS
         sass = subprocess.run(
             [os.path.join(_kernels.cuda_home(), "bin", "cuobjdump"), "-sass",
              str(path)], capture_output=True, text=True, timeout=300).stdout
-        hgmma = sass.count("HGMMA")
+        hgmma = hgmma_by_function(sass)
         self.results["sass_hgmma"] = hgmma
-        self.check(hgmma > 0,
-                   f"kernel library has {hgmma} HGMMA instructions")
+        for kernel in ("stem_kernel", "match_pass"):
+            n = sum(v for k, v in hgmma.items() if kernel in k)
+            self.check(n > 0,
+                       f"{kernel}: {n} HGMMA instructions in its own SASS")
 
     # -- 3 ----------------------------------------------------------------
     def stem(self):
         from onepose_tpu_torch.ops import stem
+        from onepose_tpu_torch.ops.precision import pin_fp32
 
         rng = np.random.default_rng(0)
         stats = {}
@@ -186,14 +195,31 @@ class Smoke:
             ref = stem.stem_reference(*args)
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
-            bound = STEM_TOL * max(float(ref.abs().max()), 1.0)
+            gate = STEM_TOL * max(float(ref.abs().max()), 1.0)
+            ref64 = stem.stem_reference(*(a.double() for a in args))
+            try:
+                torch.backends.cudnn.allow_tf32 = True
+                tf32 = stem.stem_reference(*args)
+            finally:
+                pin_fp32()
+            errs64 = {k: float((v.double() - ref64).abs().max()) for k, v in
+                      (("kernel", got), ("plain_fp32", ref),
+                       ("cudnn_tf32", tf32))}
+            del ref64, tf32
             ms = cuda_ms(lambda: stem.fused_stem(*args))
             plain_ms = cuda_ms(lambda: stem.stem_reference(*args))
-            stats[str(shape)] = {"max_abs_err": err, "bound": bound,
-                                 "ms": ms, "plain_ms": plain_ms}
-            self.check(got.shape == ref.shape and err < bound,
-                       f"stem {list(shape)}: max|d|={err:.3e} < {bound:.3e}; "
-                       f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            bound_ms, bound_by = stem_bound_ms(*shape[:3])
+            stats[str(shape)] = {"max_abs_err": err, "gate": gate,
+                                 "err_vs_fp64": errs64, "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                 "bound_by": bound_by}
+            self.check(got.shape == ref.shape and err < gate,
+                       f"stem {list(shape)}: max|d|={err:.3e} < {gate:.3e}; "
+                       f"vs fp64: kernel {errs64['kernel']:.3e}, plain fp32 "
+                       f"{errs64['plain_fp32']:.3e}, cuDNN TF32 "
+                       f"{errs64['cudnn_tf32']:.3e}; kernel {ms:.3f} ms, "
+                       f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+                       f"({bound_by})  [{self.smi}]")
         self.results["stem"] = stats
 
     # -- 4 ----------------------------------------------------------------
@@ -214,9 +240,11 @@ class Smoke:
                 gate = match.match_gate(got, d0, d1, 0.07)
                 ms = cuda_ms(lambda: match.dual_softmax_argmax(d0, d1, 0.07))
                 plain_ms = cuda_ms(lambda: match.match_reference(d0, d1, 0.07))
+                bound_ms, bound_by = match_bound_ms(b, n1, n2, 256)
                 key = f"[{b},{n1},256]x[{b},{n2},256] {kind}"
                 stats[key] = {**dataclasses.asdict(gate), "ms": ms,
-                              "plain_ms": plain_ms}
+                              "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by}
                 self.check(gate.ok,
                            f"match {key}: max rel err {gate.max_rel_err:.3e} "
                            f"(gate {match.GATE_REL:.0e}), index mismatches "
@@ -228,8 +256,8 @@ class Smoke:
 
     # -- 5 ----------------------------------------------------------------
     def known_pose(self):
-        from onepose_tpu.utils import geometry as geo
         from onepose_tpu_torch import pipeline
+        from onepose_tpu_torch.utils import geometry as geo
 
         rng = np.random.default_rng(0)
         nb, nk, n2 = 3, 128, 256
@@ -267,9 +295,9 @@ class Smoke:
 
     # -- 6 ----------------------------------------------------------------
     def parity(self):
-        from onepose_tpu.utils import geometry as geo
         from onepose_tpu_torch import pipeline
         from onepose_tpu_torch.ops import epnp
+        from onepose_tpu_torch.utils import geometry as geo
 
         rng = np.random.default_rng(2)
         sp_model, gats_model = random_models(rng)
@@ -286,13 +314,15 @@ class Smoke:
         gen = torch.Generator().manual_seed(0)
         noise = epnp.draw_noise(nb, 256, HYP, 64, gen)
 
-        first = pipeline.PosePipeline(sp_model, gats_model, db, **kw)(
+        first = pipeline.PosePipeline(sp_model, gats_model, db,
+                                      device="cpu", **kw)(
             images, Ks, noise=noise)
         poses_gt = [np.concatenate([geo.rodrigues(rng.normal(size=3) * 0.3),
                                     np.array([[0.0], [0.0], [0.5]])], 1)
                     for _ in range(nb)]
         db = plant_geometry(db, first, kmat, poses_gt, rng)
-        cpu = pipeline.PosePipeline(sp_model, gats_model, db, **kw)(
+        cpu = pipeline.PosePipeline(sp_model, gats_model, db,
+                                    device="cpu", **kw)(
             images, Ks, noise=noise)
         card = pipeline.PosePipeline(sp_model, gats_model, db,
                                      device=self.dev, **kw)(
@@ -401,20 +431,66 @@ class Smoke:
         mt = self.results.get("match", {}).get(
             f"[{B},{K_PTS},256]x[{B},{SHAPE3D},256] random", {})
         launches = self.results.get("launches", {})
+        # no single PyTorch call computes either function (the stem is two
+        # convs, two ReLUs and a pool; the match an einsum, two softmaxes
+        # and two argmaxes), so library_ms is null
         return {"kernels": [
             {"name": "fused_stem", "route": "cuda",
              "source": "onepose_tpu_torch/csrc/stem.cu",
              "replaces": "onepose_tpu/ops/pallas_stem.py:133",
              "launches": launches.get("stem", 0),
              "max_abs_err": st.get("max_abs_err"), "ms": st.get("ms"),
-             "plain_ms": st.get("plain_ms")},
+             "plain_ms": st.get("plain_ms"), "bound_ms": st.get("bound_ms"),
+             "bound_by": st.get("bound_by"), "library_ms": None},
             {"name": "dual_softmax_argmax", "route": "cuda",
              "source": "onepose_tpu_torch/csrc/match.cu",
              "replaces": "onepose_tpu/ops/pallas_match.py:113",
              "launches": launches.get("match", 0),
              "max_abs_err": mt.get("max_abs_err"), "ms": mt.get("ms"),
-             "plain_ms": mt.get("plain_ms")},
+             "plain_ms": mt.get("plain_ms"), "bound_ms": mt.get("bound_ms"),
+             "bound_by": mt.get("bound_by"), "library_ms": None},
         ]}
+
+
+def hgmma_by_function(sass: str) -> dict:
+    """Count of HGMMA instructions in each function of ``cuobjdump -sass``
+    output, by (mangled) function name."""
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def _bound(times: dict):
+    """(least ms, what bounds it) from {"bytes" or "operations": s}."""
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def stem_bound_ms(b, h, w):
+    """Least time of the stem at [b,h,w,1]: the larger of its bytes over HBM
+    (input read once, pooled output written once) and its operations:
+    conv1b as three TF32 tensor-core products, conv1a in fp32 FMA on the
+    CUDA cores (the two units run side by side, so the larger counts)."""
+    pix = b * h * w
+    conv1b = 2 * pix * 9 * 64 * 64
+    conv1a = 2 * pix * 9 * 64
+    return _bound({
+        "bytes": (pix * 4 + pix // 4 * 64 * 4) / PEAK_BYTES,
+        "operations": max(3 * conv1b / PEAK_TF32, conv1a / PEAK_FP32)})
+
+
+def match_bound_ms(b, n1, n2, d):
+    """Least time of the dual-softmax argmax: S = d0 . d1^T as three TF32
+    products, or reading the descriptors and writing two (index, max)
+    pairs per row and column, whichever is longer."""
+    return _bound({
+        "bytes": (b * (n1 + n2) * d * 4 + b * (n1 + n2) * 8) / PEAK_BYTES,
+        "operations": 3 * 2 * b * n1 * n2 * d / PEAK_TF32})
 
 
 def unit(x):
@@ -430,7 +506,7 @@ def random_models(rng):
 
 
 def random_db(rng, points, shape3d, leaf, obs=(2, 10)):
-    from onepose_tpu.datasets import anno
+    from onepose_tpu_torch.datasets import anno
 
     idxs = rng.integers(obs[0], obs[1], points)
     total = int(idxs.sum())

@@ -65,7 +65,11 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kBM = 128;  // rows of mdesc0 per tile: two 64-row warpgroups
 constexpr int kBN = 128;  // rows of mdesc1 per tile: the wgmma N
@@ -153,12 +157,6 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-
 // ---- split: x -> (hi, lo), zero-padded ------------------------------------
 
 struct SplitArgs {
@@ -215,10 +213,6 @@ __global__ void __launch_bounds__(256) match_split(SplitArgs s) {
 
 // ---- the tile product ------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Byte offset of 16-byte piece p of row r in an operand tile in the
 // 128-byte swizzle: the piece index is XORed with the row's address bits
 // [7, 10), i.e. with r % 8.
@@ -229,39 +223,7 @@ __device__ __forceinline__ uint32_t swizzled(int r, int p) {
 // wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle,
 // 8-row groups 1024 bytes apart, starting on a 1024-byte boundary.
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
-  uint64_t d = (addr & 0x3FFFF) >> 4;               // start address
-  d |= static_cast<uint64_t>(1) << 16;              // LBO (unused here)
-  d |= static_cast<uint64_t>(1024 >> 4) << 32;      // SBO
-  d |= static_cast<uint64_t>(1) << 62;              // 128-byte swizzle
-  return d;
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+  return smem_desc(addr, 16, 1024, kSwizzle128B);  // LBO unused here
 }
 
 // d[64] = A[64 x 8] . B[128 x 8]^T (+ d if accumulate), tf32 operands,
@@ -290,12 +252,6 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t a,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// Keeps the compiler from moving accumulator reads above a wgmma wait.
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 struct Operands {
@@ -349,7 +305,7 @@ __device__ __forceinline__ void tile_product(float (&acc)[64], uint32_t pipe,
     // chunk c has landed for every thread, and chunk c - 1 has left the
     // MMA of both warpgroups, so its stage can be refilled
     cp_async_wait<kStages - 2>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     __syncthreads();
     const int next = c + kStages - 1;
     if (next < nk) load_chunk(pipe + (next % kStages) * kStageBytes, o, next);

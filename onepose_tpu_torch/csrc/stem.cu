@@ -1,4 +1,5 @@
-// Fused SuperPoint stem for Hopper (sm_90a), fp32.
+// Fused SuperPoint stem for Hopper (sm_90a): conv1b as a 3xTF32 implicit
+// GEMM on the tensor cores.
 //
 // Replaces: onepose_tpu/ops/pallas_stem.py::fused_stem_tiled (kernel
 // _kernel_tiled) and its whole-width twin fused_stem (kernel _kernel), which
@@ -6,148 +7,315 @@
 // 64->64 + bias + ReLU, then a 2x2 max-pool with stride 2. Both convs use SAME
 // zero padding, so conv1a's values outside the image are zero for conv1b.
 //
-// What bounds it: conv1b is 36,864 FMAs per full-resolution pixel, 9.7e9 for
-// a [8,512,512] batch, against 8 MB of input and 33.5 MB of output. Unfused,
-// the two [B,H,W,64] fp32 activations (537 MB each) would go to device memory
-// and back. Fused, the kernel is bound by fp32 FMA issue: TF32 or bf16 tensor
-// cores are ruled out by the 1e-4 relative tolerance the port holds.
+// What bounds it. At [8,512,512,1] conv1b is 8 * 512^2 * 576 * 64 = 7.73e10
+// FMA (154.6 GFLOP) and conv1a 1.2e9 FMA (2.4 GFLOP), against 8.4 MB of
+// input and 134.2 MB of pooled output, so operations bound it. fp32 FMA on
+// the CUDA cores could not go below 154.6 GFLOP / 67 TFLOP/s = 2.31 ms. A
+// single TF32 or bf16 product keeps about three decimal digits, too few for
+// the stem's max|d| < 1e-4 * max(|ref|, 1) gate; three TF32 products
+// (hi.hi + hi.lo + lo.hi) are fp32-class, and their least time is
+// 3 * 154.6 GFLOP / 495 TFLOP/s = 0.937 ms. Unfused, the two [B,H,W,64]
+// fp32 activations (537 MB each) would go to device memory and back.
 //
-// Design: one block per 16x16 full-resolution tile of one image.
-//   1. The input tile with a 2-px halo goes to shared memory.
-//   2. conv1a + ReLU for the tile plus a 1-px halo goes to shared memory,
-//      channel-major ([64][18*18]); positions outside the image are zeroed.
-//   3. conv1b runs from shared memory, one 64x64 weight tap staged in shared
-//      memory at a time. Each thread keeps a 2x2-pixel x 16-channel register
-//      tile, so the 2x2 pool is taken in registers.
-//   4. The pooled [8,8,64] tile is the single store, as float4s.
-// Nothing but the pooled output reaches device memory.
+// Design. A block takes kRows = 4 output rows x kTW = 64 columns of one
+// image (256 pixels, the M tile); two warpgroups own two rows each.
+//  1. The input tile with a 2-px halo goes to shared memory, then conv1a +
+//     bias + ReLU (fp32 FMA, 1.5% of the work) on the 6 x 66 tile with a
+//     1-px halo, stored as [cin/4][pixel][4] floats (pixel = row * 66 +
+//     col), zero outside the image.
+//  2. conv1b as D[pixel][cout] = sum over 9 taps and 64 cin of
+//     A[pixel + shift(tap)][cin] * W[tap][cin][cout]: for each tap and row,
+//     one 64 x 64 product over K = 64 cin in 8 k-steps of
+//     wgmma.mma_async m64n64k8 tf32, A (64 pixels) from registers, B (the
+//     tap's weights) from shared memory. A tap only moves where the
+//     fragment loads start (dy * 66 + dx pixels on): no copy per tap. The
+//     loads are conflict-free, 8 pixels x one cin quad (128 bytes) a warp.
+//     Each fragment is split in registers into hi = rna_tf32(a) and
+//     lo = rna_tf32(a - hi), rounded in two integer operations
+//     (tf32_round): cvt.rna.tf32.f32 compiles to a longer sequence with a
+//     finite check (2.20 ms with it, 1.89 ms with tf32_round). Per k-step
+//     lo.hi + hi.lo + hi.hi. A group is issued in two halves of 4 k-steps;
+//     while the second half is in the MMA, the first half of the next
+//     group's fragments is loaded and split (2.20 -> 1.85 ms with both).
+//  3. Each tap's sum is taken on the tensor cores into a fresh register tile
+//     and added to the running sum in fp32 round-to-nearest, as match.cu
+//     does per chunk. One running accumulator a row was 3% faster but put
+//     the [8,512,512] output 9.2e-6 from an fp64 reference, 4.8x cuDNN
+//     fp32's 1.9e-6; per tap it is 1.2e-6.
+//  4. Weights stream tap by tap through a 2-stage ring, no workspace and no
+//     second launch: each thread holds 16 fp32 of tap t + 1 (loaded from L2
+//     while tap t is in the MMA) and, after its MMAs, writes their hi and lo
+//     into the other stage in wgmma's no-swizzle K-major layout
+//     [cin/4][cout][4] (8-cout core matrices 128 B apart, cin quads 1 KB
+//     apart). L2 weight traffic: 147 KB a block, 1.2 GB at [8,512,512].
+//  5. Pool in registers: a warpgroup's two accumulators are image rows y and
+//     y + 1 of the same 64 columns, so the vertical max stays in the thread;
+//     pixels m and m + 1 are accumulator rows one __shfl_xor_sync(.., 4)
+//     apart. relu(max + bias) == max(relu(. + bias)) since rounding is
+//     monotone. Only the pooled [B,H/2,W/2,64] output reaches device memory,
+//     as float2s that fill whole 32-byte sectors.
+// Shared memory 171,648 bytes a block (one block an SM), 206 registers, no
+// spills (ptxas). At [8,512,512,1]: 1.85 ms, 50% of the 0.937 ms bound
+// (H100 80GB HBM3, 700 W; times from scripts/time_torch_stem.py). What is left: a block's conv1a and epilogue
+// overlap no MMA (one block an SM), each group drains the MMA before its
+// fp32 add, and the per-tap barrier brings both warpgroups into step.
+// Ragged H and W: conv1a is zero outside the image, and rows and columns
+// past the end are not stored.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kC = 64;              // channels of conv1a and conv1b
-constexpr int kT = 16;              // full-resolution tile edge
-constexpr int kTA = kT + 2;         // conv1a tile edge (1-px halo)
-constexpr int kTI = kT + 4;         // input tile edge (2-px halo)
+using namespace hopper;
+
+constexpr int kC = 64;               // channels of conv1a and conv1b
+constexpr int kTW = 64;              // output columns a block: wgmma's M
+constexpr int kRows = 4;             // output rows a block: 2 a warpgroup
+constexpr int kAW = kTW + 2;         // conv1a tile (1-px halo)
+constexpr int kAH = kRows + 2;
+constexpr int kAP = kAW * kAH;       // conv1a tile pixels
+constexpr int kIW = kTW + 4;         // input tile (2-px halo)
+constexpr int kIH = kRows + 4;
 constexpr int kThreads = 256;
-constexpr int kCG = 16;             // output channels per thread
-constexpr int kPoolT = kT / 2;      // pooled tile edge
+constexpr int kQuads = kC / 4;       // channel quads
+constexpr int kTapFloats = kC * kC;
+constexpr int kWPer = kTapFloats / kThreads;  // weights a thread stages a tap
+constexpr int kHalfBytes = kTapFloats * 4;    // hi (or lo) of one tap
+constexpr int kStageBytes = 2 * kHalfBytes;
 
-constexpr int kSmemFloats = kC * kTA * kTA   // conv1a tile
-                          + kC * kC          // one tap of conv1b weights
-                          + kTI * kTI        // input tile
-                          + 9 * kC + kC;     // conv1a weights and bias
+constexpr int kOffW = 0;                                // [2][hi, lo][16][64][4]
+constexpr int kOffA = kOffW + 2 * kStageBytes;          // [16][kAP][4]
+constexpr int kOffIn = kOffA + kQuads * kAP * 16;       // [kIH][kIW]
+constexpr int kOffW1a = kOffIn + kIH * kIW * 4;         // [9][64]
+constexpr int kOffB1a = kOffW1a + 9 * kC * 4;           // [64]
+constexpr int kSmemBytes = kOffB1a + kC * 4;
+static_assert(kSmemBytes == 171648, "the source note states this size");
 
-__global__ void __launch_bounds__(kThreads)
+// d[32] (+)= A[64 x 8] . B[64 x 8]^T, A tf32 in registers (wgmma's fragment:
+// a0 (row lane/4, col lane%4), a1 row + 8, a2 col + 4, a3 both, rows
+// 16 * warp on), B by descriptor, fp32 accumulator.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// This thread's 16 weights of tap t: cin quad q = idx / 64, cout idx % 64
+// for idx = tid + 256 * it; a warp reads 32 consecutive couts.
+__device__ __forceinline__ void load_tap(const float* __restrict__ w1b,
+                                         int t, float (&w)[kWPer]) {
+  const float* src = w1b + t * kTapFloats;
+#pragma unroll
+  for (int it = 0; it < kWPer / 4; ++it) {
+    const int idx = it * kThreads + threadIdx.x;
+    const int q = idx / kC, co = idx % kC;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) w[4 * it + e] = __ldg(src + (4 * q + e) * kC + co);
+  }
+}
+
+// Their hi and lo into one stage, [cin/4][cout][4] each.
+__device__ __forceinline__ void store_tap(const float (&w)[kWPer],
+                                          float4* stage) {
+#pragma unroll
+  for (int it = 0; it < kWPer / 4; ++it) {
+    const int idx = it * kThreads + threadIdx.x;  // == q * 64 + co
+    float4 hi, lo;
+    hi.x = tf32_round(w[4 * it + 0]);
+    hi.y = tf32_round(w[4 * it + 1]);
+    hi.z = tf32_round(w[4 * it + 2]);
+    hi.w = tf32_round(w[4 * it + 3]);
+    lo.x = tf32_round(w[4 * it + 0] - hi.x);
+    lo.y = tf32_round(w[4 * it + 1] - hi.y);
+    lo.z = tf32_round(w[4 * it + 2] - hi.z);
+    lo.w = tf32_round(w[4 * it + 3] - hi.w);
+    stage[idx] = hi;
+    stage[kTapFloats / 4 + idx] = lo;
+  }
+}
+
+// Half a group's A fragments, k-steps 4 h .. 4 h + 3, split into hi and lo.
+// Rows: pixels m and m + 8 of the row, m = 16 warp + lane / 4; columns:
+// cin 8 kk + lane % 4 (plane 2 kk) and + 4 (plane 2 kk + 1). `a` points at
+// pixel m of the row, tap's shift included, plane 0, element lane % 4.
+struct Frags {
+  uint32_t hi[4][4], lo[4][4];
+};
+
+__device__ __forceinline__ void load_frags(const float* a, int h, Frags& f) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int kk = 4 * h + k;
+      const float x = a[((2 * kk + (r >> 1)) * kAP + 8 * (r & 1)) * 4];
+      const float hi = tf32_round(x);
+      f.hi[k][r] = __float_as_uint(hi);
+      f.lo[k][r] = __float_as_uint(tf32_round(x - hi));
+    }
+}
+
+// part (+)= the half's lo.hi + hi.lo + hi.hi against the weights of the
+// stage at `st`; half 0 starts the sum afresh.
+__device__ __forceinline__ void issue_half(float (&part)[32], const Frags& f,
+                                           uint32_t st, int h) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    // cin quads 2 kk and 2 kk + 1, 1 KB apart (LBO); couts 8 by 8, 128 B
+    // apart (SBO)
+    const uint32_t k_off = (4 * h + k) * 2 * kC * 16;
+    const uint64_t b_hi = smem_desc(st + k_off, kC * 16, 128, kNoSwizzle);
+    const uint64_t b_lo =
+        smem_desc(st + kHalfBytes + k_off, kC * 16, 128, kNoSwizzle);
+    wgmma_rs(part, f.lo[k], b_hi, h > 0 || k > 0);
+    wgmma_rs(part, f.hi[k], b_lo);
+    wgmma_rs(part, f.hi[k], b_hi);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 stem_kernel(const float* __restrict__ img, const float* __restrict__ w1a,
             const float* __restrict__ b1a, const float* __restrict__ w1b,
             const float* __restrict__ b1b, float* __restrict__ out,
             int H, int W) {
-  extern __shared__ float4 smem4[];
-  float* s_a = reinterpret_cast<float*>(smem4);  // [kC][kTA*kTA]
-  float* s_w = s_a + kC * kTA * kTA;              // [cin][cout], one tap
-  float* s_in = s_w + kC * kC;                    // [kTI*kTI]
-  float* s_w1a = s_in + kTI * kTI;                // [9][kC]
-  float* s_b1a = s_w1a + 9 * kC;                  // [kC]
+  extern __shared__ __align__(128) uint8_t smem[];
+  float4* s_w = reinterpret_cast<float4*>(smem + kOffW);
+  float* s_a = reinterpret_cast<float*>(smem + kOffA);
+  float* s_in = reinterpret_cast<float*>(smem + kOffIn);
+  float* s_w1a = reinterpret_cast<float*>(smem + kOffW1a);
+  float* s_b1a = reinterpret_cast<float*>(smem + kOffB1a);
+  const uint32_t w_base = smem_addr(smem + kOffW);
 
   const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kT;
-  const int x0 = blockIdx.x * kT;
+  const int y0 = blockIdx.y * kRows;
+  const int x0 = blockIdx.x * kTW;
   const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = (tid >> 5) & 3, wg = tid >> 7;
   const float* im = img + static_cast<size_t>(b) * H * W;
 
-  for (int i = tid; i < kTI * kTI; i += kThreads) {
-    const int r = y0 - 2 + i / kTI;
-    const int c = x0 - 2 + i % kTI;
+  float wreg[kWPer];
+  load_tap(w1b, 0, wreg);
+  for (int i = tid; i < kIH * kIW; i += kThreads) {
+    const int r = y0 - 2 + i / kIW;
+    const int c = x0 - 2 + i % kIW;
     s_in[i] = (r >= 0 && r < H && c >= 0 && c < W)
                   ? im[static_cast<size_t>(r) * W + c] : 0.f;
   }
   for (int i = tid; i < 9 * kC; i += kThreads) s_w1a[i] = w1a[i];
   if (tid < kC) s_b1a[tid] = b1a[tid];
+  store_tap(wreg, s_w);
   __syncthreads();
 
-  // conv1a + ReLU on the 18x18 tile; zero where conv1b's SAME padding reads
-  // outside the image.
-  for (int i = tid; i < kC * kTA * kTA; i += kThreads) {
-    const int ch = i / (kTA * kTA);
-    const int p = i % (kTA * kTA);
-    const int ty = p / kTA;
-    const int tx = p % kTA;
-    const int r = y0 - 1 + ty;
-    const int c = x0 - 1 + tx;
-    float v = 0.f;
+  // conv1a + ReLU on the halo tile, one pixel x channel quad an item; zero
+  // where conv1b's SAME padding reads outside the image.
+  for (int i = tid; i < kQuads * kAP; i += kThreads) {
+    const int q = i / kAP, p = i % kAP;
+    const int ty = p / kAW, tx = p % kAW;
+    const int r = y0 - 1 + ty, c = x0 - 1 + tx;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
     if (r >= 0 && r < H && c >= 0 && c < W) {
-      float acc = 0.f;
+      float x[9];
 #pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
+      for (int k = 0; k < 9; ++k) x[k] = s_in[(ty + k / 3) * kIW + tx + k % 3];
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
-          acc = fmaf(s_in[(ty + dy) * kTI + tx + dx],
-                     s_w1a[(dy * 3 + dx) * kC + ch], acc);
-      v = fmaxf(acc + s_b1a[ch], 0.f);
+      for (int e = 0; e < 4; ++e) {
+        const int ch = 4 * q + e;
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < 9; ++k) acc = fmaf(x[k], s_w1a[k * kC + ch], acc);
+        v[e] = fmaxf(acc + s_b1a[ch], 0.f);
+      }
     }
-    s_a[i] = v;
+    reinterpret_cast<float4*>(s_a)[q * kAP + p] =
+        make_float4(v[0], v[1], v[2], v[3]);
   }
 
-  // conv1b: thread = (channel group cg, pool window (py, px)).
-  const int cg = tid / (kPoolT * kPoolT);
-  const int win = tid % (kPoolT * kPoolT);
-  const int py = win / kPoolT;
-  const int px = win % kPoolT;
-  float acc[4][kCG];
+  // conv1b, as 18 groups (tap, row), each the product over K = 64 cin in
+  // two halves of 4 k-steps. While the second half is in the MMA, the first
+  // half of the next group's fragments is loaded and split.
+  const int m = 16 * warp + (lane >> 2);
+  const int kq = lane & 3;
+  const float* a_wg = s_a + (2 * wg * kAW + m) * 4 + kq;
+  auto a_at = [&](int tap, int ry) {
+    return a_wg + ((ry + tap / 3) * kAW + tap % 3) * 4;
+  };
+  float acc[2][32];
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
+  for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int o = 0; o < kCG; ++o) acc[k][o] = 0.f;
+    for (int i = 0; i < 32; ++i) acc[r][i] = 0.f;
+  float part[32];
+  Frags f0, f1;
+  fence_proxy_async();
+  __syncthreads();  // the conv1a tile and tap 0's weights are in place
+  load_frags(a_at(0, 0), 0, f0);
 
   for (int tap = 0; tap < 9; ++tap) {
-    __syncthreads();  // s_a complete (first tap); previous tap consumed
-    const float4* src = reinterpret_cast<const float4*>(w1b + tap * kC * kC);
-    float4* dst = reinterpret_cast<float4*>(s_w);
-    for (int i = tid; i < kC * kC / 4; i += kThreads) dst[i] = src[i];
-    __syncthreads();
-    const int dy = tap / 3;
-    const int dx = tap % 3;
-    const float* a0 = s_a + (2 * py + dy) * kTA + 2 * px + dx;
-    for (int ci = 0; ci < kC; ++ci) {
-      const float* a = a0 + ci * kTA * kTA;
-      const float v[4] = {a[0], a[1], a[kTA], a[kTA + 1]};
-      const float4* w4 = reinterpret_cast<const float4*>(s_w + ci * kC + cg * kCG);
+    if (tap + 1 < 9) load_tap(w1b, tap + 1, wreg);
+    const uint32_t st = w_base + (tap & 1) * kStageBytes;
 #pragma unroll
-      for (int q = 0; q < kCG / 4; ++q) {
-        const float4 w = w4[q];
+    for (int ry = 0; ry < 2; ++ry) {
+      wgmma_fence();
+      issue_half(part, f0, st, 0);
+      wgmma_commit();
+      load_frags(a_at(tap, ry), 1, f1);
+      wgmma_fence();
+      issue_half(part, f1, st, 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // the first half has left the MMA: f0 is free
+      const int next = ry ? tap + 1 : tap;
+      if (next < 9) load_frags(a_at(next, ry ^ 1), 0, f0);
+      wgmma_wait<0>();
+      fence_operands(part);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          acc[k][4 * q + 0] = fmaf(v[k], w.x, acc[k][4 * q + 0]);
-          acc[k][4 * q + 1] = fmaf(v[k], w.y, acc[k][4 * q + 1]);
-          acc[k][4 * q + 2] = fmaf(v[k], w.z, acc[k][4 * q + 2]);
-          acc[k][4 * q + 3] = fmaf(v[k], w.w, acc[k][4 * q + 3]);
-        }
-      }
+      for (int i = 0; i < 32; ++i) acc[ry][i] += part[i];
+    }
+    if (tap + 1 < 9) {
+      // every warpgroup has finished tap - 1, which read the other stage
+      store_tap(wreg, s_w + ((tap + 1) & 1) * kStageBytes / 16);
+      fence_proxy_async();
+      __syncthreads();
     }
   }
 
-  // relu(max_k(acc_k + bias)) == max(max_k(acc_k) + bias, 0): rounding is
-  // monotone, so the pool commutes with the bias add and the ReLU.
-  const int H2 = H / 2;
-  const int W2 = W / 2;
-  const int oy = blockIdx.y * kPoolT + py;
-  const int ox = blockIdx.x * kPoolT + px;
-  if (oy < H2 && ox < W2) {
-    float4* o = reinterpret_cast<float4*>(
-        out + ((static_cast<size_t>(b) * H2 + oy) * W2 + ox) * kC + cg * kCG);
+  // Accumulator element 4 n + 2 i + j: pixel m + 8 i, cout 8 n + 2 kq + j.
+  const int H2 = H / 2, W2 = W / 2;
+  const int oy = y0 / 2 + wg;
 #pragma unroll
-    for (int q = 0; q < kCG / 4; ++q) {
-      float r[4];
+  for (int i = 0; i < 2; ++i) {
+    const int ox = (x0 + m + 8 * i) / 2;
+    const bool store = ((lane >> 2) & 1) == 0 && oy < H2 && ox < W2;
+    float* o = out + ((static_cast<size_t>(b) * H2 + oy) * W2 + ox) * kC;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ch = 4 * q + j;
-        const float m = fmaxf(fmaxf(acc[0][ch], acc[1][ch]),
-                              fmaxf(acc[2][ch], acc[3][ch]));
-        r[j] = fmaxf(m + b1b[cg * kCG + ch], 0.f);
+    for (int n = 0; n < 8; ++n) {
+      float v[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = 4 * n + 2 * i + j;
+        v[j] = fmaxf(acc[0][e], acc[1][e]);
+        v[j] = fmaxf(v[j], __shfl_xor_sync(0xffffffffu, v[j], 4));
       }
-      o[q] = make_float4(r[0], r[1], r[2], r[3]);
+      const int co = 8 * n + 2 * kq;
+      if (store)
+        *reinterpret_cast<float2*>(o + co) =
+            make_float2(fmaxf(v[0] + __ldg(b1b + co), 0.f),
+                        fmaxf(v[1] + __ldg(b1b + co + 1), 0.f));
     }
   }
 }
@@ -160,12 +328,12 @@ extern "C" int stem_forward(const float* img, const float* w1a,
                             const float* b1a, const float* w1b,
                             const float* b1b, float* out, int B, int H, int W,
                             cudaStream_t stream) {
-  const int smem = kSmemFloats * static_cast<int>(sizeof(float));
+  // set on every call: the attribute belongs to the current device
   cudaError_t err = cudaFuncSetAttribute(
-      stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((W + kT - 1) / kT, (H + kT - 1) / kT, B);
-  stem_kernel<<<grid, kThreads, smem, stream>>>(img, w1a, b1a, w1b, b1b, out,
-                                                H, W);
+  const dim3 grid((W + kTW - 1) / kTW, (H + kRows - 1) / kRows, B);
+  stem_kernel<<<grid, kThreads, kSmemBytes, stream>>>(img, w1a, b1a, w1b,
+                                                      b1b, out, H, W);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,8 +5,8 @@ Counterpart of the repository's ``inference.py``. Per (object, sequence)
 it loads the 3D descriptor DB and the models, runs every frame through
 ``PosePipeline`` in batches, evaluates against the ground-truth poses and
 writes a report per sequence. The host-side pieces (config, DB loading,
-image loading, prefetch, evaluation, paths, scene export) are the JAX
-package's own host-only modules.
+image loading, prefetch, evaluation, paths, scene export) are the port's
+own copies of the JAX package's host-only modules.
 
     python -m onepose_tpu_torch.inference +experiment=test_sample
 
@@ -34,12 +34,12 @@ def _read_list(path):
 
 def inference_core(cfg, data_root, seq_dir, sfm_model_dir, sp_model,
                    gats_model):
-    from onepose_tpu.datasets import anno
-    from onepose_tpu.evaluators import Evaluator, record_eval_result
-    from onepose_tpu.runtime.loader import PrefetchLoader
-    from onepose_tpu.sfm.extract import CONFS, load_gray
-    from onepose_tpu.utils import path_utils
     from onepose_tpu_torch import pipeline
+    from onepose_tpu_torch.datasets import anno
+    from onepose_tpu_torch.evaluators import Evaluator, record_eval_result
+    from onepose_tpu_torch.runtime.loader import PrefetchLoader
+    from onepose_tpu_torch.sfm.extract import CONFS, load_gray
+    from onepose_tpu_torch.utils import path_utils
 
     anno_dir = path_utils.get_anno_dir(
         sfm_model_dir, cfg.network.detection, cfg.network.matching)
@@ -76,7 +76,7 @@ def inference_core(cfg, data_root, seq_dir, sfm_model_dir, sp_model,
     generator = torch.Generator(device=device).manual_seed(12345)
     scene_poses = [] if cfg.get("save_wis3d", False) else None
     loader = PrefetchLoader(img_lists, lambda p: load_gray(p)[..., None],
-                            batch_size=bs, depth=2, device_put=False)
+                            batch_size=bs, depth=2)
 
     # keep a bounded window of batches in flight, draining the oldest
     pending = []
@@ -111,7 +111,7 @@ def inference_core(cfg, data_root, seq_dir, sfm_model_dir, sp_model,
     obj_name = sfm_model_dir.rstrip("/").split("/")[-1]
     seq_name = seq_dir.rstrip("/").split("/")[-1]
     if scene_poses is not None:
-        from onepose_tpu.utils import vis_utils
+        from onepose_tpu_torch.utils import vis_utils
 
         vis_dir = cfg.get_path("output.vis_dir") or cfg.output.eval_dir
         valid3d = np.asarray(db.mask3d, bool)
@@ -150,7 +150,7 @@ def inference(cfg):
 
 
 def main():
-    from onepose_tpu.config import load_config
+    from onepose_tpu_torch.config import load_config
 
     cfg = load_config(sys.argv[1:])
     {"inference": inference}[cfg.type](cfg)

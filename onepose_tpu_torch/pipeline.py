@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from onepose_tpu.datasets.anno import ObjectDB
+from onepose_tpu_torch.datasets.anno import ObjectDB
 from onepose_tpu_torch.models import gats_spg, superpoint
 from onepose_tpu_torch.ops import epnp
 from onepose_tpu_torch.ops.precision import pin_fp32
@@ -61,7 +61,9 @@ def poses_from_matches(keypoints2d: torch.Tensor, kpt_mask: torch.Tensor,
 
 class PosePipeline:
     """One object's pose estimator: the two models and the object's 3D
-    descriptor DB on ``device``, and a batched frame→pose call."""
+    descriptor DB on ``device``, and a batched frame→pose call. The
+    device is the card unless the caller names another; without a card
+    the default raises."""
 
     def __init__(self, sp_model: superpoint.SuperPoint,
                  gats_model: gats_spg.GATsSPG, db: ObjectDB,
@@ -70,13 +72,16 @@ class PosePipeline:
                  reproj_threshold: float = 5.0,
                  num_hypotheses: int = 512,
                  refine_iters: int = 5,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         pin_fp32()
         self.sp_config = dict(superpoint.DEFAULT_CONFIG)
         self.sp_config.update(sp_config or {})
         superpoint.check_fp32(self.sp_config)
         self.gats_config = gats_spg.resolve_config(gats_config)
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("PosePipeline: no CUDA device; pass "
+                               "device='cpu' to run on the CPU")
         self.sp_model = sp_model.to(self.device).eval()
         self.gats_model = gats_model.to(self.device).eval()
 

@@ -6,7 +6,8 @@ JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances: the stem within the fused-stem gate's max|Δ| < 1e-4·max(|ref|,
-1) (fp32 FMA in another order, no TF32); the match kernel under
+1) (3xTF32 on the tensor cores, fp32-class), and its error against an fp64
+reference at most twice cuDNN fp32's (TF32 off); the match kernel under
 ``match.match_gate``: each max conf within GATE_REL = 3e-5 of the plain
 max of its row or column, indices equal except in relative near-ties
 (fp32-class products agree to about 1e-5, TF32 ones do not)."""
@@ -28,15 +29,20 @@ def cuda():
     return torch.device("cuda")
 
 
-def _stem_args(rng, shape, dev):
-    arrs = (rng.uniform(0, 1, shape), rng.normal(size=(3, 3, 1, 64)) * 0.3,
-            rng.normal(size=64) * 0.1, rng.normal(size=(3, 3, 64, 64)) * 0.06,
+def _stem_args(rng, shape, dev, weight_scale=1.0):
+    arrs = (rng.uniform(0, 1, shape),
+            rng.normal(size=(3, 3, 1, 64)) * 0.3 * weight_scale,
+            rng.normal(size=64) * 0.1,
+            rng.normal(size=(3, 3, 64, 64)) * 0.06 * weight_scale,
             rng.normal(size=64) * 0.1)
     return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
 
 
+# widths that are not a multiple of the kernel's 64 columns and heights
+# that are not a multiple of its 4 rows, besides the original shapes
 @pytest.mark.parametrize("shape", [(2, 64, 128, 1), (1, 40, 72, 1),
-                                   (3, 16, 16, 1), (1, 2, 2, 1)])
+                                   (3, 16, 16, 1), (1, 2, 2, 1),
+                                   (1, 34, 130, 1), (2, 18, 66, 1)])
 def test_stem_kernel_matches_plain(cuda, shape):
     args = _stem_args(np.random.default_rng(0), shape, cuda)
     before = stem.fused_stem.launches
@@ -46,6 +52,27 @@ def test_stem_kernel_matches_plain(cuda, shape):
     assert got.shape == ref.shape
     assert float((got - ref).abs().max()) < 1e-4 * max(
         float(ref.abs().max()), 1.0)
+
+
+def test_stem_kernel_large_activations(cuda):
+    """Weights ×4: activations about 16× larger, where a relative error
+    shows in absolute terms."""
+    args = _stem_args(np.random.default_rng(2), (2, 34, 130, 1), cuda, 4.0)
+    got = stem.fused_stem(*args)
+    ref = stem.stem_reference(*args)
+    assert float(ref.abs().max()) > 10
+    assert float((got - ref).abs().max()) < 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 128, 1), (1, 34, 130, 1)])
+def test_stem_kernel_is_fp32_class(cuda, shape):
+    """Against an fp64 reference the kernel's 3xTF32 products err at most
+    twice as much as cuDNN's fp32 convolutions with TF32 off."""
+    args = _stem_args(np.random.default_rng(3), shape, cuda)
+    ref64 = stem.stem_reference(*(a.double() for a in args))
+    kernel = float((stem.fused_stem(*args).double() - ref64).abs().max())
+    plain = float((stem.stem_reference(*args).double() - ref64).abs().max())
+    assert kernel <= 2 * plain, (kernel, plain)
 
 
 def test_stem_wrapper_refuses_bad_input(cuda):
@@ -140,8 +167,8 @@ def test_match_wrapper_refuses_bad_input(cuda):
 def test_pipeline_on_card_matches_cpu(cuda):
     """The whole path at a small size, injected noise: same keypoints and
     matches as the CPU port, poses within 1e-3."""
-    from onepose_tpu.datasets import anno
     from onepose_tpu_torch import pipeline
+    from onepose_tpu_torch.datasets import anno
     from onepose_tpu_torch.models import convert
     from onepose_tpu_torch.ops import epnp
 
@@ -166,7 +193,8 @@ def test_pipeline_on_card_matches_cpu(cuda):
     Ks = np.broadcast_to(np.array([[120.0, 0, 32], [0, 120.0, 32],
                                    [0, 0, 1]], np.float32), (2, 3, 3)).copy()
     noise = epnp.draw_noise(2, 64, 32, 64, torch.Generator().manual_seed(0))
-    cpu = pipeline.PosePipeline(sp, gats, db, **kw)(images, Ks, noise=noise)
+    cpu = pipeline.PosePipeline(sp, gats, db, device="cpu", **kw)(
+        images, Ks, noise=noise)
     card = pipeline.PosePipeline(sp, gats, db, device=cuda, **kw)(
         images, Ks, noise=epnp.RansacNoise(*(n.to(cuda) for n in noise)))
     torch.testing.assert_close(card.keypoints2d.cpu(), cpu.keypoints2d,

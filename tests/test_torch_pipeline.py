@@ -54,7 +54,7 @@ def scene():
     port = tpipe.PosePipeline(
         convert.superpoint_from_jax(jax.tree.map(np.asarray, sp_params)),
         convert.gats_spg_from_jax(jax.tree.map(np.asarray, gats_params)),
-        db, sp_config=SP_CFG, gats_config=GATS_CFG, **PNP)
+        db, sp_config=SP_CFG, gats_config=GATS_CFG, device="cpu", **PNP)
     return jax_pipe, port
 
 
