@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``onepose_tpu_torch/csrc`` at
 first use (into ``build/onepose_tpu_torch/``, counted in this run's time)
-and runs seven phases; weights and inputs come from fixed seeds.
+and runs nine phases; weights and inputs come from fixed seeds.
 
   1. card name and power limit (nvidia-smi);
   2. kernel build time, ptxas register use, and the count of tensor-core
@@ -28,8 +28,26 @@ and runs seven phases; weights and inputs come from fixed seeds.
      consistent with a known pose per frame;
   7. the whole pipeline at the protocol shape (B=8, 512x512, K=1024,
      shape3d=2000, leaf 8, 512 hypotheses, refine 5): finite outputs,
-     both kernels launched by that run, per-stage times.
+     both kernels launched by that run, per-stage times;
+  8. multi-object serving at the same shape with 8 resident objects:
+     a mixed batch (one request per object, injected noise) equal to a
+     PosePipeline per object and recovering each object's planted pose;
+     the match kernel on the per-element DBs under ``match_gate``; the
+     uniform fast path equal to the mixed step; the bf16 catalog close to
+     fp32; ``infer_many`` over 24 requests equal to ``infer_batch``; the
+     async path answering full and partial batches; serve-step times;
+  9. the feature-matching detector at full width (SuperGlue outdoor shape,
+     15 DB views of 512x512, K=1024, a 1440x1920 query): the stem kernel
+     vs plain at [15,512,512,1] and [1,1440,1920,1]; a planted similarity
+     recovered by ``ransac_similarity``; a planted detection (one view
+     pasted into the frame) recovered within 1 px; ``detect_bbox`` on the
+     card vs the CPU under ``superglue.match_gate``, and the card's
+     SuperGlue with TF32 products refused by the same gate; detect times
+     split into extract, SuperGlue, RANSAC.
 
+Each main path (phases 7, 8 and 9) is driven once with the launch counts
+set to 0 just before it and read just after; the kernels line sums those
+counts. Every phase's launches, comparisons included, are in the JSON.
 Detailed results go to ``DIR/chip_smoke.json`` and ``DIR/profile.txt``
 (default ``build/chip_smoke``). Any failed phase makes the script exit 1
 without the kernels line and the final line. The last line of a passing
@@ -39,6 +57,7 @@ CUDA device the script exits 1.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import os
@@ -60,6 +79,9 @@ PARITY_DEG, PARITY_CM = 0.05, 0.05   # card vs CPU pose agreement
 B, H, W, K_PTS, SHAPE3D, LEAF, HYP = 8, 512, 512, 1024, 2000, 8, 512
 KMAT = np.array([[460.0, 0, W / 2], [0, 460.0, H / 2], [0, 0, 1]],
                 np.float32)
+N_OBJECTS = 8                      # resident objects of phase 8
+N_VIEWS, FRAME_HW = 15, (1440, 1920)   # phase 9: DB views, query frame
+PASTE_XY, PASTED_VIEW = (648, 464), 7  # multiples of 8
 
 
 def log(*args):
@@ -127,12 +149,36 @@ class Smoke:
     def phase(self, name, fn):
         log(f"== {name}")
         t0 = time.perf_counter()
+        before = launch_counts()
         try:
             fn()
         except Exception:  # report every phase, then fail the run
             traceback.print_exc()
             self.failures.append(f"{name}: exception")
-        log(f"   ({time.perf_counter() - t0:.1f} s)")
+        after = launch_counts()
+        self.results.setdefault("launches_by_phase", {})[name] = {
+            k: after[k] - before[k] for k in after}
+        seconds = time.perf_counter() - t0
+        self.results.setdefault("phase_s", {})[name] = seconds
+        log(f"   ({seconds:.1f} s)")
+
+    def path_launches(self, path, fn, kernels=("stem", "match")):
+        """Drive a main path: every launch count set to 0 just before
+        ``fn``, read just after (then restored, so that the per-phase
+        counts stay whole). Fails the run if a kernel of the path was not
+        launched."""
+        saved = launch_counts()
+        set_launch_counts({k: 0 for k in saved})
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            got = launch_counts()
+            set_launch_counts({k: saved[k] + got[k] for k in saved})
+        self.results.setdefault("launches", {})[path] = got
+        self.check(all(got[k] > 0 for k in kernels),
+                   f"{path} path launched its kernels: {got}")
+        return out
 
     # -- 1 ----------------------------------------------------------------
     def card(self):
@@ -174,53 +220,56 @@ class Smoke:
 
     # -- 3 ----------------------------------------------------------------
     def stem(self):
+        rng = np.random.default_rng(0)
+        for shape in ((B, H, W, 1), (2, 64, 128, 1)):
+            self.stem_case(shape, rng)
+
+    def stem_case(self, shape, rng):
+        """The stem kernel vs plain at ``shape`` (random weights), errors
+        against fp64, both times and the bound, into results["stem"]."""
         from onepose_tpu_torch.ops import stem
         from onepose_tpu_torch.ops.precision import pin_fp32
 
-        rng = np.random.default_rng(0)
-        stats = {}
-        for shape in ((B, H, W, 1), (2, 64, 128, 1)):
-            img = torch.from_numpy(
-                rng.uniform(0, 1, shape).astype(np.float32)).to(self.dev)
-            w1a = torch.from_numpy(rng.normal(size=(3, 3, 1, 64)).astype(
-                np.float32) * np.float32(np.sqrt(2 / 9))).to(self.dev)
-            w1b = torch.from_numpy(rng.normal(size=(3, 3, 64, 64)).astype(
-                np.float32) * np.float32(np.sqrt(2 / 576))).to(self.dev)
-            b1a = torch.from_numpy(
-                rng.normal(size=64).astype(np.float32) * 0.1).to(self.dev)
-            b1b = torch.from_numpy(
-                rng.normal(size=64).astype(np.float32) * 0.1).to(self.dev)
-            args = (img, w1a, b1a, w1b, b1b)
-            got = stem.fused_stem(*args)
-            ref = stem.stem_reference(*args)
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            gate = STEM_TOL * max(float(ref.abs().max()), 1.0)
-            ref64 = stem.stem_reference(*(a.double() for a in args))
-            try:
-                torch.backends.cudnn.allow_tf32 = True
-                tf32 = stem.stem_reference(*args)
-            finally:
-                pin_fp32()
-            errs64 = {k: float((v.double() - ref64).abs().max()) for k, v in
-                      (("kernel", got), ("plain_fp32", ref),
-                       ("cudnn_tf32", tf32))}
-            del ref64, tf32
-            ms = cuda_ms(lambda: stem.fused_stem(*args))
-            plain_ms = cuda_ms(lambda: stem.stem_reference(*args))
-            bound_ms, bound_by = stem_bound_ms(*shape[:3])
-            stats[str(shape)] = {"max_abs_err": err, "gate": gate,
-                                 "err_vs_fp64": errs64, "ms": ms,
-                                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                 "bound_by": bound_by}
-            self.check(got.shape == ref.shape and err < gate,
-                       f"stem {list(shape)}: max|d|={err:.3e} < {gate:.3e}; "
-                       f"vs fp64: kernel {errs64['kernel']:.3e}, plain fp32 "
-                       f"{errs64['plain_fp32']:.3e}, cuDNN TF32 "
-                       f"{errs64['cudnn_tf32']:.3e}; kernel {ms:.3f} ms, "
-                       f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-                       f"({bound_by})  [{self.smi}]")
-        self.results["stem"] = stats
+        img = torch.from_numpy(
+            rng.uniform(0, 1, shape).astype(np.float32)).to(self.dev)
+        w1a = torch.from_numpy(rng.normal(size=(3, 3, 1, 64)).astype(
+            np.float32) * np.float32(np.sqrt(2 / 9))).to(self.dev)
+        w1b = torch.from_numpy(rng.normal(size=(3, 3, 64, 64)).astype(
+            np.float32) * np.float32(np.sqrt(2 / 576))).to(self.dev)
+        b1a = torch.from_numpy(
+            rng.normal(size=64).astype(np.float32) * 0.1).to(self.dev)
+        b1b = torch.from_numpy(
+            rng.normal(size=64).astype(np.float32) * 0.1).to(self.dev)
+        args = (img, w1a, b1a, w1b, b1b)
+        got = stem.fused_stem(*args)
+        ref = stem.stem_reference(*args)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        gate = STEM_TOL * max(float(ref.abs().max()), 1.0)
+        ref64 = stem.stem_reference(*(a.double() for a in args))
+        try:
+            torch.backends.cudnn.allow_tf32 = True
+            tf32 = stem.stem_reference(*args)
+        finally:
+            pin_fp32()
+        errs64 = {k: float((v.double() - ref64).abs().max()) for k, v in
+                  (("kernel", got), ("plain_fp32", ref),
+                   ("cudnn_tf32", tf32))}
+        del ref64, tf32
+        ms = cuda_ms(lambda: stem.fused_stem(*args))
+        plain_ms = cuda_ms(lambda: stem.stem_reference(*args))
+        bound_ms, bound_by = stem_bound_ms(*shape[:3])
+        self.results.setdefault("stem", {})[str(shape)] = {
+            "max_abs_err": err, "gate": gate, "err_vs_fp64": errs64,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        self.check(got.shape == ref.shape and err < gate,
+                   f"stem {list(shape)}: max|d|={err:.3e} < {gate:.3e}; "
+                   f"vs fp64: kernel {errs64['kernel']:.3e}, plain fp32 "
+                   f"{errs64['plain_fp32']:.3e}, cuDNN TF32 "
+                   f"{errs64['cudnn_tf32']:.3e}; kernel {ms:.3f} ms, "
+                   f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+                   f"({bound_by})  [{self.smi}]")
 
     # -- 4 ----------------------------------------------------------------
     def match(self):
@@ -320,7 +369,8 @@ class Smoke:
         poses_gt = [np.concatenate([geo.rodrigues(rng.normal(size=3) * 0.3),
                                     np.array([[0.0], [0.0], [0.5]])], 1)
                     for _ in range(nb)]
-        db = plant_geometry(db, first, kmat, poses_gt, rng)
+        db = plant_geometry(db, first.matches0, first.keypoints2d, kmat,
+                            poses_gt, rng)
         cpu = pipeline.PosePipeline(sp_model, gats_model, db,
                                     device="cpu", **kw)(
             images, Ks, noise=noise)
@@ -361,7 +411,6 @@ class Smoke:
     # -- 7 ----------------------------------------------------------------
     def protocol(self):
         from onepose_tpu_torch import pipeline
-        from onepose_tpu_torch.ops import match, stem
 
         rng = np.random.default_rng(0)
         sp_model, gats_model = random_models(rng)
@@ -376,33 +425,27 @@ class Smoke:
             np.broadcast_to(KMAT, (B, 3, 3)).copy()).to(self.dev)
         gen = torch.Generator(device=self.dev).manual_seed(1)
 
-        stem.fused_stem.launches = 0
-        match.dual_softmax_argmax.launches = 0
-        out = pipe(images, Ks, generator=gen)
-        torch.cuda.synchronize()
-        launches = {"stem": stem.fused_stem.launches,
-                    "match": match.dual_softmax_argmax.launches}
-        self.results["launches"] = launches
+        out = self.path_launches("pipeline",
+                                 lambda: pipe(images, Ks, generator=gen))
         finite = all(bool(torch.isfinite(x.float()).all()) for x in
                      (out.poses, out.keypoints2d, out.descriptors2d))
         shapes = (tuple(out.poses.shape) == (B, 3, 4)
                   and tuple(out.matches0.shape) == (B, K_PTS))
         self.check(finite and shapes, "protocol run: finite outputs, shapes")
-        self.check(launches["stem"] > 0 and launches["match"] > 0,
-                   f"protocol run launched the kernels: {launches}")
         log(f"   keypoints/frame {out.kpt_mask.sum(1).tolist()}, matches "
             f"{out.num_matches.tolist()}, success {out.success.tolist()}")
 
-        # per-stage device time of a batch of 8
+        # per-stage device time of a batch of 8 (5 calls each: phase 8
+        # times the same steps again)
         det = pipe.extract(images)
         mt = pipe.match(det)
         stage = {
-            "extract_ms": cuda_ms(lambda: pipe.extract(images), 10, 2),
-            "match_ms": cuda_ms(lambda: pipe.match(det), 10, 2),
+            "extract_ms": cuda_ms(lambda: pipe.extract(images), 5, 1),
+            "match_ms": cuda_ms(lambda: pipe.match(det), 5, 1),
             "pnp_ms": cuda_ms(lambda: pipe.pose(det, mt, Ks, generator=gen),
-                              10, 2),
+                              5, 1),
             "total_ms": cuda_ms(lambda: pipe(images, Ks, generator=gen),
-                                10, 2),
+                                5, 1),
         }
         stage["frames_per_s"] = B * 1000.0 / stage["total_ms"]
         self.results["protocol"] = stage
@@ -426,11 +469,344 @@ class Smoke:
             f.write("\n".join(tables))
         self.check(prof["total"]["busy_ms"] > 0, "protocol run used the card")
 
+    # -- 8 ----------------------------------------------------------------
+    def serving(self):
+        from onepose_tpu_torch import pipeline, serving
+        from onepose_tpu_torch.models import gats_spg, superpoint
+        from onepose_tpu_torch.ops import epnp, match
+        from onepose_tpu_torch.utils import geometry as geo
+
+        rng = np.random.default_rng(8)
+        sp_model, gats_model = random_models(rng)
+        dbs = {f"obj{i}": random_db(rng, points=SHAPE3D - 8, shape3d=SHAPE3D,
+                                    leaf=LEAF, obs=(LEAF, LEAF * 3))
+               for i in range(N_OBJECTS)}
+        # random weights keep every conf far below the trained 0.2: every
+        # mutual nearest neighbour counts as a match, so PnP gets work
+        kw = dict(sp_config={"max_keypoints": K_PTS},
+                  gats_config={"match_threshold": 0.0}, batch_size=B,
+                  num_hypotheses=HYP, refine_iters=5, device=self.dev)
+        images = rng.uniform(0, 1, (B, H, W)).astype(np.float32)
+        reqs = [serving.PoseRequest(f"obj{b}", images[b], KMAT)
+                for b in range(B)]
+        noise = epnp.draw_noise(B, K_PTS, HYP, 64, torch.Generator(
+            device=self.dev).manual_seed(8), self.dev)
+
+        # plant each object's 3D points on its frame's matches and a known
+        # pose (matching reads descriptors only, so the matches stay)
+        first = serving.PoseServer(sp_model, gats_model, dbs, **kw).run(
+            reqs, noise)
+        poses_gt = [np.concatenate([geo.rodrigues(rng.normal(size=3) * 0.3),
+                                    np.array([[0.0], [0.0], [0.5]])], 1)
+                    for _ in range(B)]
+        dbs = {f"obj{b}": plant_geometry(
+            dbs[f"obj{b}"], first.matches0[b:b + 1],
+            first.keypoints2d[b:b + 1], KMAT, poses_gt[b:b + 1], rng)
+            for b in range(B)}
+        del first
+        server = serving.PoseServer(sp_model, gats_model, dbs, **kw)
+        stack_mb = sum(t.numel() * t.element_size()
+                       for t in server.db_stack.values()) / 1e6
+        out = self.path_launches("serving", lambda: server.run(reqs, noise))
+        stats = self.results["serving"] = {
+            "objects": N_OBJECTS, "db_stack_mb": stack_mb,
+            "matches": out.num_matches.tolist(),
+            "inliers": out.num_inliers.tolist()}
+
+        # the same frames through a PosePipeline per object
+        Ks = np.broadcast_to(KMAT, (B, 3, 3)).copy()
+        for b in range(B):
+            ref = pipeline.PosePipeline(
+                sp_model, gats_model, dbs[f"obj{b}"],
+                sp_config=kw["sp_config"], gats_config=kw["gats_config"],
+                num_hypotheses=HYP, refine_iters=5, device=self.dev)(
+                images[..., None], Ks, noise=noise)
+            diff = int((out.matches0[b] != ref.matches0[b]).sum())
+            pose_d = float((out.poses[b] - ref.poses[b]).abs().max())
+            r_gt, t_gt = geo.query_pose_error(out.poses[b].cpu().numpy(),
+                                              poses_gt[b])
+            self.check(diff == 0 and pose_d <= 1e-4
+                       and bool(out.success[b]) == bool(ref.success[b]),
+                       f"serving obj{b}: matches0 differ from its pipeline at "
+                       f"{diff} slots, pose by {pose_d:.2e}")
+            self.check(bool(out.success[b]) and r_gt < POSE_DEG
+                       and t_gt < POSE_CM,
+                       f"serving obj{b}: planted pose {r_gt:.4f} deg, "
+                       f"{t_gt:.4f} cm, {int(out.num_inliers[b])} inliers of "
+                       f"{int(out.num_matches[b])} matches")
+
+        # the match kernel on the per-element DBs, against plain
+        with torch.no_grad():
+            img_t = torch.from_numpy(images[..., None]).to(self.dev)
+            det = superpoint.extract(server.sp_model, img_t,
+                                     server.sp_config)
+            idx = torch.arange(B, device=self.dev)
+            data = {"descriptors2d_query": det.descriptors,
+                    "descriptors3d_db": server.db_stack[
+                        "descriptors3d"].index_select(0, idx),
+                    "descriptors2d_db": server.db_stack[
+                        "descriptors2d_db"].index_select(0, idx)}
+            m0, m1 = gats_spg.gnn_body(server.gats_model, data,
+                                       server.gats_config)
+        scale = server.gats_config["scale_factor"]
+        got = match.dual_softmax_argmax(m0, m1, scale)
+        torch.cuda.synchronize()
+        gates = [match.match_gate([g[b:b + 1] for g in got], m0[b:b + 1],
+                                  m1[b:b + 1], scale) for b in range(B)]
+        stats["match_gate"] = [dataclasses.asdict(g) for g in gates]
+        self.check(all(g.ok for g in gates),
+                   "serving: match kernel on per-element DBs under "
+                   f"match_gate: max rel err "
+                   f"{max(g.max_rel_err for g in gates):.3e}, index "
+                   f"differences {[g.idx_diff for g in gates]}, outside "
+                   f"near-ties {sum(g.bad_idx for g in gates)}")
+
+        # the uniform fast path against the mixed step
+        uni = [serving.PoseRequest("obj3", images[b], KMAT) for b in range(B)]
+        staged = server._assemble(uni, to_device=False)
+        fast = server._launch(staged, noise)
+        mixed = server._launch(staged._replace(uniform=False), noise)
+        diff = int((fast.matches0 != mixed.matches0).sum())
+        pose_d = float((fast.poses - mixed.poses).abs().max())
+        self.check(staged.uniform and diff == 0 and pose_d <= 1e-5,
+                   f"serving: uniform fast path vs mixed step: matches0 "
+                   f"differ at {diff} slots, poses by {pose_d:.2e}")
+
+        # the bf16 catalog against fp32 (tests/test_serving.py's contract)
+        s16 = serving.PoseServer(sp_model, gats_model, dbs, db_dtype="bfloat16",
+                                 **kw)
+        out16 = s16.run(reqs, noise)
+        del s16
+        both = (out.matches0 >= 0) | (out16.matches0 >= 0)
+        agree = float(((out.matches0 == out16.matches0) & both).sum()
+                      / both.sum())
+        inl, inl16 = out.num_inliers.tolist(), out16.num_inliers.tolist()
+        stats["bf16_match_agreement"] = agree
+        self.check(agree >= 0.9 and torch.equal(out.success, out16.success)
+                   and all(abs(a - b) <= max(3, 0.2 * a)
+                           for a, b in zip(inl, inl16)),
+                   f"serving: bf16 catalog: {agree:.4f} of matched slots "
+                   f"agree with fp32, inliers {inl16} vs {inl}")
+
+        # infer_many over 24 requests against infer_batch of its chunks
+        many_reqs = [serving.PoseRequest(
+            f"obj{i % N_OBJECTS}", rng.uniform(0, 1, (H, W)).astype(
+                np.float32), KMAT) for i in range(3 * B)]
+        server.generator.manual_seed(3)
+        many = server.infer_many(many_reqs, depth=2, max_in_flight=2)
+        server.generator.manual_seed(3)
+        serial = [r for i in range(0, len(many_reqs), B)
+                  for r in server.infer_batch(many_reqs[i:i + B])]
+        same = len(many) == len(serial) == 3 * B and all(
+            a["success"] == b["success"]
+            and a["num_inliers"] == b["num_inliers"]
+            and (a["pose"] is None
+                 or np.abs(a["pose"] - b["pose"]).max() <= 1e-5)
+            for a, b in zip(many, serial))
+        self.check(same, f"serving: infer_many gave {len(many)} results, "
+                   "equal to infer_batch of the same chunks")
+
+        # the async path: a partial batch after max_latency_s, a full one
+        server.max_latency_s = 0.05
+        server.start()
+        try:
+            t0 = time.perf_counter()
+            partial = [server.submit(r) for r in many_reqs[:5]]
+            res = [f.result(timeout=120) for f in partial]
+            partial_s = time.perf_counter() - t0
+            full = [server.submit(r) for r in many_reqs[5:5 + B]]
+            res += [f.result(timeout=120) for f in full]
+        finally:
+            server.stop()
+        stats["async_partial_s"] = partial_s
+        self.check(len(res) == 5 + B and all("success" in r for r in res)
+                   and not server._worker.is_alive(),
+                   f"serving: async path answered {len(res)} submits (a "
+                   f"partial batch of 5 in {partial_s:.3f} s, then {B})")
+
+        # serve-step time a batch and the card's busy share
+        ms = event_ms(lambda: server.run(reqs), 10, 2)
+        stats["serve_ms"] = {"median": float(np.median(ms)),
+                             "min": min(ms), "max": max(ms), "all": ms}
+        stats["profile"], table = device_profile(lambda: server.run(reqs))
+        with open(os.path.join(self.out_dir, "profile.txt"), "a") as f:
+            f.write(f"\n== serving: {stats['profile']}\n{table}")
+        log(f"   serve step at {N_OBJECTS} objects ({stack_mb:.1f} MB of DB): "
+            f"median {stats['serve_ms']['median']:.3f} ms a batch of {B} "
+            f"(min {min(ms):.3f}, max {max(ms):.3f}); busy "
+            f"{stats['profile']['busy_ms']:.3f} ms, share "
+            f"{stats['profile']['busy_share']:.3f}  [{self.smi}]")
+
+    # -- 9 ----------------------------------------------------------------
+    def detector(self):
+        from onepose_tpu_torch import detector as tdet
+        from onepose_tpu_torch.models import convert, superglue
+        from onepose_tpu_torch.ops import similarity
+        from onepose_tpu_torch.ops.precision import pin_fp32
+
+        rng = np.random.default_rng(9)
+        stats = self.results["detector"] = {}
+        for shape in ((N_VIEWS, H, W, 1), (1, *FRAME_HW, 1)):
+            self.stem_case(shape, rng)
+
+        # a planted similarity per view, 30% outliers
+        n = K_PTS
+        ang = rng.uniform(-np.pi, np.pi, N_VIEWS)
+        sc = rng.uniform(0.5, 2.0, N_VIEWS)
+        A_gt = sc[:, None, None] * np.stack(
+            [np.stack([np.cos(ang), -np.sin(ang)], -1),
+             np.stack([np.sin(ang), np.cos(ang)], -1)], -2)
+        t_gt = rng.uniform(-200, 200, (N_VIEWS, 2))
+        src = rng.uniform(0, W, (N_VIEWS, n, 2))
+        dst = src @ A_gt.transpose(0, 2, 1) + t_gt[:, None] + rng.normal(
+            size=src.shape) * 0.5
+        out_idx = rng.random((N_VIEWS, n)) < 0.3
+        dst[out_idx] = rng.uniform(0, FRAME_HW[1], (int(out_idx.sum()), 2))
+        t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(self.dev)  # noqa: E731
+        fit = similarity.ransac_similarity(
+            t(src), t(dst), torch.ones(N_VIEWS, n, dtype=torch.bool,
+                                       device=self.dev),
+            generator=torch.Generator(device=self.dev).manual_seed(9))
+        a_err = float(np.abs(fit.A.cpu().numpy() - A_gt).max())
+        t_err = float(np.abs(fit.t.cpu().numpy() - t_gt).max())
+        # 0.5 px noise against a 6 px threshold: the inliers are exactly
+        # the planted correspondences
+        wrong = int((fit.inliers.cpu().numpy() != ~out_idx).sum())
+        stats["similarity"] = {"A_err": a_err, "t_err": t_err,
+                               "wrong_inliers": wrong}
+        self.check(a_err < 1e-2 and t_err < 2.0 and wrong == 0,
+                   f"detector: planted similarity on {N_VIEWS} views: "
+                   f"|dA| {a_err:.2e}, |dt| {t_err:.3f} px, inlier sets "
+                   f"differ from the planted ones at {wrong} of "
+                   f"{N_VIEWS * n}")
+
+        # the scene: one DB view pasted into a black frame
+        sp_model = convert.superpoint_from_jax(
+            convert.init_superpoint_params(rng))
+        views = [rng.uniform(0, 1, (H, W)).astype(np.float32)
+                 for _ in range(N_VIEWS)]
+        frame = np.zeros(FRAME_HW, np.float32)
+        (ox, oy) = PASTE_XY
+        frame[oy:oy + H, ox:ox + W] = views[PASTED_VIEW]
+        rect = np.array([ox, oy, ox + W, oy + H])
+        sg_params = convert.init_superglue_params(rng)
+        probe = tdet.LocalFeatureObjectDetector(
+            sp_model, convert.superglue_from_jax(sg_params), views,
+            max_keypoints=K_PTS, device=self.dev)
+        planted = convert.plant_superglue(sg_params, probe.db_det, 0.0)
+        del probe
+
+        def detector_path():   # the DB views' extraction, then one frame
+            d = tdet.LocalFeatureObjectDetector(
+                sp_model, convert.superglue_from_jax(planted), views,
+                max_keypoints=K_PTS, device=self.dev)
+            return d, d.detect_bbox(frame)
+
+        det, (box, inliers) = self.path_launches(
+            "detector", detector_path, kernels=("stem",))
+        stats["planted_box"] = {"box": box.tolist(), "rect": rect.tolist(),
+                                "inliers": inliers}
+        self.check(np.abs(box - rect).max() <= 1 and inliers >= 100,
+                   f"detector: planted detection: box {box.tolist()} vs "
+                   f"pasted {rect.tolist()} (1 px), {inliers} inliers")
+
+        # card vs CPU, small random GNN deltas, the same injected noise
+        perturbed = convert.plant_superglue(sg_params, det.db_det, 0.05)
+        noise = torch.rand((N_VIEWS, 256, K_PTS),
+                           generator=torch.Generator().manual_seed(10))
+        sides, dets = {}, {}
+        for side, dev in (("card", self.dev), ("cpu", torch.device("cpu"))):
+            # a module moves to its detector's device: one copy each
+            d = tdet.LocalFeatureObjectDetector(
+                copy.deepcopy(sp_model), convert.superglue_from_jax(perturbed),
+                views, max_keypoints=K_PTS, device=dev)
+            t0 = time.perf_counter()
+            q = d.extract(torch.from_numpy(frame).to(dev)[None, :, :, None])
+            data = d.match_data(q, FRAME_HW)
+            Z = superglue.log_assignment(d.sg_model, data, d.sg_config)
+            m = superglue.mutual_matches(Z, d.sg_config["match_threshold"],
+                                         data["mask0"], data["mask1"])
+            fits = d.fit(q, m, noise.to(dev))
+            sides[side] = (d.box(fits, FRAME_HW), m.matches0.cpu(),
+                           Z.cpu(), (data["keypoints0"].cpu(),
+                                     data["keypoints1"].cpu()))
+            dets[side] = d, data
+            log(f"   detect on the {side}: {time.perf_counter() - t0:.1f} s")
+        card_det, card_data = dets["card"]
+        thr = card_det.sg_config["match_threshold"]
+        (c_box, c_inl), c_m0, c_Z, c_kp = sides["card"]
+        (h_box, h_inl), h_m0, h_Z, h_kp = sides["cpu"]
+        gate = superglue.match_gate(c_m0, c_Z, h_m0, h_Z, thr, c_kp, h_kp)
+        stats["card_vs_cpu"] = {"card": [c_box.tolist(), c_inl],
+                                "cpu": [h_box.tolist(), h_inl],
+                                "gate": dataclasses.asdict(gate),
+                                "matches": int((h_m0 >= 0).sum())}
+        self.check(np.array_equal(c_box, h_box) and c_inl == h_inl
+                   and gate.ok,
+                   f"detector: card vs CPU: same keypoint positions "
+                   f"{gate.same_keypoints}, box {c_box.tolist()} / "
+                   f"{h_box.tolist()}, inliers {c_inl} / {h_inl}; log "
+                   f"assignments differ by {gate.max_abs_diff:.3e} "
+                   f"({gate.max_rel_diff:.2e} of their scale, gate "
+                   f"{superglue.GATE_REL:.0e}); matches0 differ at "
+                   f"{gate.diff} of {int((h_m0 >= 0).sum())} matched rows, "
+                   f"outside near-ties {gate.bad} ({gate.near_ties} near-tie "
+                   f"rows+cols)")
+
+        # control: the card's SuperGlue with TF32 products, on the card
+        # side's own inputs, must fail the same gate
+        try:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.set_float32_matmul_precision("high")
+            tf_Z = superglue.log_assignment(card_det.sg_model, card_data,
+                                            card_det.sg_config)
+            tf_m = superglue.mutual_matches(tf_Z, thr, card_data["mask0"],
+                                            card_data["mask1"])
+            torch.cuda.synchronize()
+        finally:
+            pin_fp32()
+        ctrl = superglue.match_gate(tf_m.matches0.cpu(), tf_Z.cpu(), h_m0,
+                                    h_Z, thr, c_kp, h_kp)
+        stats["tf32_control"] = dataclasses.asdict(ctrl)
+        self.check(not ctrl.ok and ctrl.max_rel_diff > superglue.GATE_REL,
+                   f"detector: TF32 control refused: log assignments "
+                   f"{ctrl.max_abs_diff:.3e} apart ({ctrl.max_rel_diff:.2e} "
+                   f"of their scale, gate {superglue.GATE_REL:.0e}); "
+                   f"matches0 differ at {ctrl.diff} rows, outside near-ties "
+                   f"{ctrl.bad}")
+        del card_data, tf_Z, tf_m
+
+        # detect time a frame, split into its three device stages
+        q_img = torch.from_numpy(frame).to(self.dev)[None, :, :, None]
+        q = card_det.extract(q_img)
+        m = card_det.match(q, FRAME_HW)
+        gen = torch.Generator(device=self.dev).manual_seed(11)
+        split = {
+            "extract_ms": event_ms(lambda: card_det.extract(q_img), 5, 1),
+            "superglue_ms": event_ms(lambda: card_det.match(q, FRAME_HW),
+                                     5, 1),
+            "ransac_ms": event_ms(lambda: card_det.fit(q, m, generator=gen),
+                                 5, 1),
+            "detect_ms": event_ms(lambda: card_det.detect_bbox(frame), 5, 1)}
+        stats["times"] = {k: {"median": float(np.median(v)), "all": v}
+                          for k, v in split.items()}
+        stats["profile"], table = device_profile(
+            lambda: card_det.detect_bbox(frame))
+        with open(os.path.join(self.out_dir, "profile.txt"), "a") as f:
+            f.write(f"\n== detect: {stats['profile']}\n{table}")
+        log("   detect a frame: " + ", ".join(
+            f"{k} {np.median(v):.3f}" for k, v in split.items())
+            + f"; busy {stats['profile']['busy_ms']:.3f} ms, share "
+            f"{stats['profile']['busy_share']:.3f}  [{self.smi}]")
+
     def kernels_line(self):
         st = self.results.get("stem", {}).get(str((B, H, W, 1)), {})
         mt = self.results.get("match", {}).get(
             f"[{B},{K_PTS},256]x[{B},{SHAPE3D},256] random", {})
-        launches = self.results.get("launches", {})
+        # launches of the main paths (pipeline, serving, detector)
+        launches = {k: sum(p.get(k, 0) for p in
+                           self.results.get("launches", {}).values())
+                    for k in ("stem", "match")}
         # no single PyTorch call computes either function (the stem is two
         # convs, two ReLUs and a pool; the match an einsum, two softmaxes
         # and two argmaxes), so library_ms is null
@@ -450,6 +826,37 @@ class Smoke:
              "plain_ms": mt.get("plain_ms"), "bound_ms": mt.get("bound_ms"),
              "bound_by": mt.get("bound_by"), "library_ms": None},
         ]}
+
+
+def launch_counts() -> dict:
+    from onepose_tpu_torch.ops import match, stem
+
+    return {"stem": stem.fused_stem.launches,
+            "match": match.dual_softmax_argmax.launches}
+
+
+def set_launch_counts(counts: dict) -> None:
+    from onepose_tpu_torch.ops import match, stem
+
+    stem.fused_stem.launches = counts["stem"]
+    match.dual_softmax_argmax.launches = counts["match"]
+
+
+def event_ms(fn, iters, warmup):
+    """CUDA-event time of each of ``iters`` calls of ``fn``, after
+    ``warmup`` calls, in ms."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
 
 
 def hgmma_by_function(sass: str) -> dict:
@@ -519,7 +926,7 @@ def random_db(rng, points, shape3d, leaf, obs=(2, 10)):
         idxs=idxs, num_leaf=leaf, shape3d=shape3d)
 
 
-def plant_geometry(db, out, kmat, poses_gt, rng):
+def plant_geometry(db, matches0, keypoints2d, kmat, poses_gt, rng):
     """A copy of ``db`` whose 3D points are the back-projections, at a
     random depth and under frame b's known pose, of the keypoints that
     frame b matched to them (the first frame to claim a point keeps it;
@@ -528,8 +935,8 @@ def plant_geometry(db, out, kmat, poses_gt, rng):
     kpts3d = db.keypoints3d.copy()
     taken = np.zeros(len(kpts3d), bool)
     kinv = np.linalg.inv(kmat.astype(np.float64))
-    m0 = out.matches0.cpu().numpy()
-    kp = out.keypoints2d.cpu().numpy()
+    m0 = matches0.cpu().numpy()
+    kp = keypoints2d.cpu().numpy()
     for b, pose in enumerate(poses_gt):
         for k in np.flatnonzero(m0[b] >= 0):
             j = m0[b, k]
@@ -563,6 +970,8 @@ def main() -> int:
     smoke.phase("5 known-pose PnP on the card", smoke.known_pose)
     smoke.phase("6 card vs CPU parity", smoke.parity)
     smoke.phase("7 protocol-shape pipeline", smoke.protocol)
+    smoke.phase("8 multi-object serving", smoke.serving)
+    smoke.phase("9 feature-matching detector", smoke.detector)
     smoke.check("jax" not in sys.modules, "no JAX imported")
 
     smoke.results["failures"] = smoke.failures

@@ -4,17 +4,23 @@ Two sources:
 
 - JAX parameter pytrees of ``onepose_tpu`` (as numpy or array-likes):
   conv weights HWIO → OIHW, dense ``[cin, cout]`` → ``nn.Linear``
-  ``[cout, cin]``, GATs ``W [d, d]`` and ``a [2d, 1]`` as they are;
-- reference PyTorch state dicts (``superpoint_v1.pth``, ``GATsSPG.ckpt``),
-  in the role of ``onepose_tpu/models/convert.py``: Conv1d ``[out, in, 1]``
-  → ``nn.Linear`` ``[out, in]``, SuperPoint's names load as they are.
+  ``[cout, cin]``, GATs ``W [d, d]`` and ``a [2d, 1]`` as they are,
+  BatchNorm ``gamma/beta/mean/var`` → ``weight/bias/running_mean/
+  running_var``;
+- reference PyTorch state dicts (``superpoint_v1.pth``, ``GATsSPG.ckpt``,
+  ``superglue_{indoor,outdoor}.pth``), in the role of
+  ``onepose_tpu/models/convert.py``: Conv1d ``[out, in, 1]`` →
+  ``nn.Linear`` ``[out, in]``, SuperPoint's names load as they are.
 
-``init_superpoint_params`` and ``init_gats_spg_params`` make seeded random
-weights in the JAX layout with numpy alone, with the JAX package's init
-schemes, so that a machine without JAX can build the models.
+``init_superpoint_params``, ``init_gats_spg_params`` and
+``init_superglue_params`` make seeded random weights in the JAX layout
+with numpy alone, with the JAX package's init schemes, so that a machine
+without JAX can build the models. ``plant_superglue`` turns such weights
+into a SuperGlue that matches descriptors by self-similarity.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -22,6 +28,8 @@ import torch
 
 from onepose_tpu_torch.models.gats_spg import DEFAULT_CONFIG as GATS_CONFIG
 from onepose_tpu_torch.models.gats_spg import GATsSPG
+from onepose_tpu_torch.models.superglue import DEFAULT_CONFIG as SG_CONFIG
+from onepose_tpu_torch.models.superglue import SuperGlue
 from onepose_tpu_torch.models.superpoint import (ENCODER_CHANNELS, HEADS,
                                                  SuperPoint)
 
@@ -70,6 +78,37 @@ def gats_spg_from_jax(params: Mapping) -> GATsSPG:
                          "mlp1"):
                 sd.update(_linear(f"{base}.{name}", p[name]))
     model = GATsSPG(d, len(layers) // 3)
+    model.load_state_dict(sd)
+    return model.eval()
+
+
+def _mlp_bn(prefix: str, layers) -> Dict[str, torch.Tensor]:
+    """JAX ``[{"lin", "bn"?}, ...]`` → :class:`superglue.MLP` keys."""
+    sd = {}
+    for i, layer in enumerate(layers):
+        sd.update(_linear(f"{prefix}.lin.{i}", layer["lin"]))
+        if "bn" in layer:
+            bn = layer["bn"]
+            sd.update({f"{prefix}.bn.{i}.weight": _t(bn["gamma"]),
+                       f"{prefix}.bn.{i}.bias": _t(bn["beta"]),
+                       f"{prefix}.bn.{i}.running_mean": _t(bn["mean"]),
+                       f"{prefix}.bn.{i}.running_var": _t(bn["var"]),
+                       f"{prefix}.bn.{i}.num_batches_tracked":
+                           torch.tensor(0)})
+    return sd
+
+
+def superglue_from_jax(params: Mapping) -> SuperGlue:
+    """``onepose_tpu.models.superglue`` params → :class:`SuperGlue`."""
+    sd = _mlp_bn("kenc", params["kenc"])
+    for i, p in enumerate(params["gnn"]):
+        for name in ("proj_q", "proj_k", "proj_v", "merge"):
+            sd.update(_linear(f"gnn.{i}.{name}", p[name]))
+        sd.update(_mlp_bn(f"gnn.{i}.mlp", p["mlp"]))
+    sd.update(_linear("final_proj", params["final_proj"]))
+    sd["bin_score"] = _t(params["bin_score"]).reshape(())
+    channels = [np.shape(layer["lin"]["w"])[1] for layer in params["kenc"]]
+    model = SuperGlue(channels, len(params["gnn"]))
     model.load_state_dict(sd)
     return model.eval()
 
@@ -127,6 +166,41 @@ def gats_spg_from_state_dict(sd: Mapping, num_blocks: int = 4) -> GATsSPG:
     return model.eval()
 
 
+def superglue_from_state_dict(sd: Mapping) -> SuperGlue:
+    """Reference ``superglue_{indoor,outdoor}.pth`` keys → :class:`SuperGlue`,
+    through the JAX layout (the encoder's and the GNN's depth read from
+    the keys)."""
+    def conv(name):
+        return {"w": _t(sd[f"{name}.weight"])[:, :, 0].T,
+                "b": _t(sd[f"{name}.bias"])}
+
+    def mlp(ref):
+        """nn.Sequential of [Conv1d, BatchNorm1d, ReLU] * k + Conv1d."""
+        convs = [j for j in range(len(sd))
+                 if np.ndim(sd.get(f"{ref}.{j}.weight")) == 3]
+        layers = [{"lin": conv(f"{ref}.{j}")} for j in convs]
+        for layer, j in zip(layers[:-1], convs):
+            bn = f"{ref}.{j + 1}"
+            layer["bn"] = {"gamma": sd[f"{bn}.weight"],
+                           "beta": sd[f"{bn}.bias"],
+                           "mean": sd[f"{bn}.running_mean"],
+                           "var": sd[f"{bn}.running_var"]}
+        return layers
+
+    n_layers = len({k.split(".")[2] for k in sd
+                    if k.startswith("gnn.layers.")})
+    return superglue_from_jax({
+        "kenc": mlp("kenc.encoder"),
+        "gnn": [{**{name: conv(f"gnn.layers.{i}.attn.proj.{j}")
+                    for j, name in enumerate(("proj_q", "proj_k", "proj_v"))},
+                 "merge": conv(f"gnn.layers.{i}.attn.merge"),
+                 "mlp": mlp(f"gnn.layers.{i}.mlp")}
+                for i in range(n_layers)],
+        "final_proj": conv("final_proj"),
+        "bin_score": sd["bin_score"],
+    })
+
+
 # ---------------------------------------------------------------------------
 # Seeded init in the JAX layout, numpy only
 # ---------------------------------------------------------------------------
@@ -175,3 +249,66 @@ def init_gats_spg_params(rng: np.random.Generator,
     layers = [gats() if i % 3 == 0 else attn()
               for i in range(3 * cfg["num_blocks"])]
     return {"gnn": layers, "final_proj": dense(d, d)}
+
+
+def init_superglue_params(rng: np.random.Generator,
+                          config: Optional[dict] = None) -> Dict:
+    """Uniform ±sqrt(1/cin) dense layers ([cin, cout]), identity
+    BatchNorm and a dustbin score of 1, the JAX package's scheme."""
+    cfg = dict(SG_CONFIG)
+    cfg.update(config or {})
+    d = cfg["descriptor_dim"]
+
+    def dense(cin, cout):
+        bound = np.float32(np.sqrt(1.0 / cin))
+        return {"w": rng.uniform(-bound, bound, (cin, cout)).astype(np.float32),
+                "b": rng.uniform(-bound, bound, cout).astype(np.float32)}
+
+    def mlp_bn(channels):
+        layers = []
+        for i in range(1, len(channels)):
+            entry = {"lin": dense(channels[i - 1], channels[i])}
+            if i < len(channels) - 1:
+                c = channels[i]
+                entry["bn"] = {"gamma": np.ones(c, np.float32),
+                               "beta": np.zeros(c, np.float32),
+                               "mean": np.zeros(c, np.float32),
+                               "var": np.ones(c, np.float32)}
+            layers.append(entry)
+        return layers
+
+    return {
+        "kenc": mlp_bn([3, *cfg["keypoint_encoder"]]),
+        "gnn": [{"proj_q": dense(d, d), "proj_k": dense(d, d),
+                 "proj_v": dense(d, d), "merge": dense(d, d),
+                 "mlp": mlp_bn([2 * d, 2 * d, d])}
+                for _ in range(cfg["num_gnn_layers"])],
+        "final_proj": dense(d, d),
+        "bin_score": np.array(1.0, np.float32),
+    }
+
+
+def plant_superglue(params, db_det, delta, target=50.0):
+    """Planted SuperGlue weights for checks without a trained checkpoint:
+    a copy of ``params`` (JAX layout, numpy) whose keypoint encoder's and
+    GNN layers' last linears are scaled by ``delta`` (0: every delta is
+    zero) and whose final projection is s·(x - mu). Random SuperPoint
+    descriptors share one dominant direction (cosines about 0.999), so mu
+    is the mean of ``db_det``'s valid descriptors (a
+    :class:`superpoint.SuperPointOutput` of the DB views), and s puts a
+    typical self-match score at ``target``. Matching is then descriptor
+    self-similarity: a view pasted into a frame is found where it was
+    pasted."""
+    params = copy.deepcopy(params)
+    for lin in [params["kenc"][-1]["lin"]] + [p["mlp"][-1]["lin"]
+                                              for p in params["gnn"]]:
+        lin["w"] *= np.float32(delta)
+        lin["b"] *= np.float32(delta)
+    desc = db_det.descriptors[db_det.mask].double().cpu().numpy()
+    mu = desc.mean(0)
+    d = desc.shape[1]
+    scale = np.sqrt(target * np.sqrt(d)
+                    / np.median(((desc - mu) ** 2).sum(-1)))
+    params["final_proj"] = {"w": (np.eye(d) * scale).astype(np.float32),
+                            "b": (-scale * mu).astype(np.float32)}
+    return params

@@ -59,6 +59,55 @@ def poses_from_matches(keypoints2d: torch.Tensor, kpt_mask: torch.Tensor,
                            generator=generator)
 
 
+def match_rows(gats_model: gats_spg.GATsSPG,
+               det: superpoint.SuperPointOutput, db_rows: dict,
+               gats_config: dict) -> gats_spg.MatchOutput:
+    """GATsSPG 2D-3D matching of B frames, frame b against DB row b.
+
+    ``db_rows`` holds ``descriptors3d``, ``descriptors2d_db`` and ``mask3d``
+    with a leading [B] axis: one object's DB expanded over the batch, or
+    rows gathered from a stack of objects. Descriptors stored in a lower
+    precision are upcast here; the matcher computes in fp32."""
+    data = {
+        "descriptors2d_query": det.descriptors,
+        "descriptors3d_db": db_rows["descriptors3d"].float(),
+        "descriptors2d_db": db_rows["descriptors2d_db"].float(),
+        "mask2d": det.mask,
+        "mask3d": db_rows["mask3d"],
+    }
+    return gats_spg.forward_match_only(gats_model, data, gats_config)
+
+
+@torch.no_grad()
+def frame_step(sp_model: superpoint.SuperPoint,
+               gats_model: gats_spg.GATsSPG, db_rows: dict,
+               images: torch.Tensor, Ks: torch.Tensor, sp_config: dict,
+               gats_config: dict, noise: Optional[epnp.RansacNoise] = None,
+               generator: Optional[torch.Generator] = None,
+               reproj_threshold: float = 5.0, num_hypotheses: int = 512,
+               refine_iters: int = 5) -> PoseOutput:
+    """Frames → poses: extraction, :func:`match_rows` and
+    :func:`poses_from_matches`. images [B, H, W, 1]; Ks [B, 3, 3];
+    ``db_rows`` as for :func:`match_rows`, with ``keypoints3d`` [B, N2, 3].
+    Both :class:`PosePipeline` and the multi-object server run this."""
+    det = superpoint.extract(sp_model, images, sp_config)
+    match = match_rows(gats_model, det, db_rows, gats_config)
+    pnp = poses_from_matches(
+        det.keypoints, det.mask, match.matches0, db_rows["keypoints3d"], Ks,
+        noise=noise, generator=generator, reproj_threshold=reproj_threshold,
+        num_hypotheses=num_hypotheses, refine_iters=refine_iters)
+    return PoseOutput(
+        poses=pnp.pose,
+        num_inliers=pnp.num_inliers,
+        num_matches=(match.matches0 >= 0).sum(1).to(torch.int32),
+        success=pnp.success,
+        matches0=match.matches0,
+        keypoints2d=det.keypoints,
+        descriptors2d=det.descriptors,
+        kpt_mask=det.mask,
+    )
+
+
 class PosePipeline:
     """One object's pose estimator: the two models and the object's 3D
     descriptor DB on ``device``, and a batched frame→pose call. The
@@ -101,20 +150,14 @@ class PosePipeline:
     def extract(self, images: torch.Tensor) -> superpoint.SuperPointOutput:
         return superpoint.extract(self.sp_model, images, self.sp_config)
 
+    def rows(self, b: int) -> dict:
+        """The object's DB expanded over a batch of ``b`` frames."""
+        return {k: v.expand(b, *v.shape) for k, v in self.db.items()}
+
     def match(self, det: superpoint.SuperPointOutput) -> gats_spg.MatchOutput:
-        b = det.descriptors.shape[0]
-        db = self.db
-        data = {
-            "descriptors2d_query": det.descriptors,
-            "descriptors3d_db": db["descriptors3d"].expand(
-                b, *db["descriptors3d"].shape),
-            "descriptors2d_db": db["descriptors2d_db"].expand(
-                b, *db["descriptors2d_db"].shape),
-            "mask2d": det.mask,
-            "mask3d": db["mask3d"].expand(b, *db["mask3d"].shape),
-        }
-        return gats_spg.forward_match_only(self.gats_model, data,
-                                           self.gats_config)
+        return match_rows(self.gats_model, det,
+                          self.rows(det.descriptors.shape[0]),
+                          self.gats_config)
 
     def pose(self, det: superpoint.SuperPointOutput,
              match: gats_spg.MatchOutput, Ks: torch.Tensor,
@@ -137,16 +180,9 @@ class PosePipeline:
         images = torch.as_tensor(images, dtype=torch.float32,
                                  device=self.device)
         Ks = torch.as_tensor(Ks, dtype=torch.float32, device=self.device)
-        det = self.extract(images)
-        match = self.match(det)
-        pnp = self.pose(det, match, Ks, noise, generator)
-        return PoseOutput(
-            poses=pnp.pose,
-            num_inliers=pnp.num_inliers,
-            num_matches=(match.matches0 >= 0).sum(1).to(torch.int32),
-            success=pnp.success,
-            matches0=match.matches0,
-            keypoints2d=det.keypoints,
-            descriptors2d=det.descriptors,
-            kpt_mask=det.mask,
-        )
+        return frame_step(
+            self.sp_model, self.gats_model, self.rows(images.shape[0]),
+            images, Ks, self.sp_config, self.gats_config, noise=noise,
+            generator=generator, reproj_threshold=self.reproj_threshold,
+            num_hypotheses=self.num_hypotheses,
+            refine_iters=self.refine_iters)

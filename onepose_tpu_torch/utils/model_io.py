@@ -1,6 +1,7 @@
 """Model loading for the port: reference PyTorch checkpoints
-(``superpoint_v1.pth``, ``GATsSPG.ckpt``) into the port's modules, with
-the reference loader's prefix stripping (``extractor.``, ``matcher.``).
+(``superpoint_v1.pth``, ``GATsSPG.ckpt``, ``superglue_outdoor.pth``) into
+the port's modules, with the reference loader's prefix stripping
+(``extractor.``, ``matcher.``, ``model.``).
 
 The JAX package's native orbax checkpoints need JAX to read and are not
 loaded here.
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 from onepose_tpu_torch.models import convert
 from onepose_tpu_torch.models.gats_spg import GATsSPG
+from onepose_tpu_torch.models.superglue import SuperGlue
 from onepose_tpu_torch.models.superpoint import SuperPoint
 
 TORCH_SUFFIXES = (".pth", ".ckpt", ".pt")
@@ -32,3 +34,8 @@ def load_gats_spg(path: str, num_blocks: int = 4) -> GATsSPG:
     return convert.gats_spg_from_state_dict(
         convert.load_state_dict(path, strip_prefixes=("matcher.",)),
         num_blocks)
+
+
+def load_superglue(path: str) -> SuperGlue:
+    _check_torch_ckpt(path)
+    return convert.superglue_from_state_dict(convert.load_state_dict(path))

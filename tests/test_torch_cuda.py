@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+paths that run them (pipeline, serving, detector) against the CPU, on a
+card.
 
 Needs an NVIDIA GPU and nvcc; skips without a card. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -10,7 +12,14 @@ Tolerances: the stem within the fused-stem gate's max|Δ| < 1e-4·max(|ref|,
 reference at most twice cuDNN fp32's (TF32 off); the match kernel under
 ``match.match_gate``: each max conf within GATE_REL = 3e-5 of the plain
 max of its row or column, indices equal except in relative near-ties
-(fp32-class products agree to about 1e-5, TF32 ones do not)."""
+(fp32-class products agree to about 1e-5, TF32 ones do not); the serve
+step's matches and poses equal to per-object pipelines (poses within
+1e-4); the detector's box and inliers equal to the CPU's, its log
+assignment within superglue.GATE_REL = 5e-5 of the CPU's scale and
+matches0 equal except in the near-ties that difference explains
+(``superglue.match_gate``)."""
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -42,7 +51,8 @@ def _stem_args(rng, shape, dev, weight_scale=1.0):
 # that are not a multiple of its 4 rows, besides the original shapes
 @pytest.mark.parametrize("shape", [(2, 64, 128, 1), (1, 40, 72, 1),
                                    (3, 16, 16, 1), (1, 2, 2, 1),
-                                   (1, 34, 130, 1), (2, 18, 66, 1)])
+                                   (1, 34, 130, 1), (2, 18, 66, 1),
+                                   (1, 1440, 1920, 1)])
 def test_stem_kernel_matches_plain(cuda, shape):
     args = _stem_args(np.random.default_rng(0), shape, cuda)
     before = stem.fused_stem.launches
@@ -203,3 +213,97 @@ def test_pipeline_on_card_matches_cpu(cuda):
                                rtol=0, atol=0)
     torch.testing.assert_close(card.poses.cpu(), cpu.poses, rtol=0,
                                atol=1e-3)
+
+
+def _random_db(rng, points=44, shape3d=48, leaf=2):
+    from onepose_tpu_torch.datasets import anno
+
+    idxs = rng.integers(2, 6, points)
+    total = int(idxs.sum())
+    return anno.build_object_db(
+        avg_keypoints3d=rng.uniform(-0.1, 0.1, (points, 3)).astype(np.float32),
+        avg_descriptors3d=rng.normal(size=(256, points)).astype(np.float32),
+        avg_scores3d=rng.uniform(0, 1, (points, 1)).astype(np.float32),
+        clt_descriptors=rng.normal(size=(256, total)).astype(np.float32),
+        clt_scores=rng.uniform(0, 1, (total, 1)).astype(np.float32),
+        idxs=idxs, num_leaf=leaf, shape3d=shape3d)
+
+
+def test_serve_step_per_element_dbs_match_pipelines(cuda):
+    """A mixed batch (a DB per batch element, gathered on the card) gives
+    each request what a card PosePipeline holding only its object gives,
+    and the match kernel launches on the gathered rows."""
+    from onepose_tpu_torch import pipeline, serving
+    from onepose_tpu_torch.models import convert
+    from onepose_tpu_torch.ops import epnp
+
+    rng = np.random.default_rng(4)
+    sp = convert.superpoint_from_jax(convert.init_superpoint_params(rng))
+    gats = convert.gats_spg_from_jax(convert.init_gats_spg_params(
+        rng, {"num_blocks": 2}))
+    dbs = {f"obj{i}": _random_db(rng) for i in range(3)}
+    kw = dict(sp_config={"max_keypoints": 64},
+              gats_config={"num_blocks": 2, "match_threshold": 0.0},
+              num_hypotheses=32, refine_iters=2)
+    K = np.array([[120.0, 0, 32], [0, 120.0, 32], [0, 0, 1]], np.float32)
+    images = rng.uniform(0, 1, (4, 64, 64)).astype(np.float32)
+    names = ["obj2", "obj0", "obj1", "obj0"]
+    reqs = [serving.PoseRequest(n, im, K) for n, im in zip(names, images)]
+    noise = epnp.draw_noise(4, 64, 32, 64, torch.Generator().manual_seed(1))
+    noise = epnp.RansacNoise(*(n.to(cuda) for n in noise))
+    server = serving.PoseServer(sp, gats, dbs, batch_size=4, device=cuda,
+                                **kw)
+    before = match.dual_softmax_argmax.launches
+    out = server.run(reqs, noise)
+    assert match.dual_softmax_argmax.launches == before + 1
+    assert int(out.num_matches.min()) > 0
+    Ks = np.broadcast_to(K, (4, 3, 3)).copy()
+    for b, name in enumerate(names):
+        ref = pipeline.PosePipeline(sp, gats, dbs[name], device=cuda, **kw)(
+            images[..., None], Ks, noise=noise)
+        torch.testing.assert_close(out.matches0[b], ref.matches0[b],
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(out.poses[b], ref.poses[b], rtol=0,
+                                   atol=1e-4)
+
+
+def test_detect_bbox_card_matches_cpu(cuda):
+    """One DB view pasted into a black frame, SuperGlue with small random
+    GNN deltas and a planted final projection (convert.plant_superglue):
+    the same box and inliers on the card as on the CPU, matches0 equal
+    outside near-ties."""
+    from onepose_tpu_torch import detector
+    from onepose_tpu_torch.models import convert, superglue
+
+    rng = np.random.default_rng(5)
+    sp = convert.superpoint_from_jax(convert.init_superpoint_params(rng))
+    params = convert.init_superglue_params(rng, {"num_gnn_layers": 4})
+    views = [rng.uniform(0, 1, (256, 256)).astype(np.float32)
+             for _ in range(3)]
+    frame = np.zeros((480, 640), np.float32)
+    frame[96:352, 160:416] = views[1]
+    probe = detector.LocalFeatureObjectDetector(
+        sp, convert.superglue_from_jax(params), views, max_keypoints=256,
+        device="cpu")
+    params = convert.plant_superglue(params, probe.db_det, 0.05)
+    noise = torch.rand((3, 256, 256), generator=torch.Generator().manual_seed(6))
+    out = {}
+    for side, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
+        det = detector.LocalFeatureObjectDetector(
+            copy.deepcopy(sp), convert.superglue_from_jax(params), views,
+            max_keypoints=256, device=dev)
+        q = det.extract(torch.from_numpy(frame).to(dev)[None, :, :, None])
+        data = det.match_data(q, frame.shape)
+        Z = superglue.log_assignment(det.sg_model, data, det.sg_config)
+        m0 = superglue.forward(det.sg_model, data, det.sg_config).matches0
+        out[side] = (det.detect_bbox(frame, noise.to(dev)), m0.cpu(), Z.cpu(),
+                     (data["keypoints0"].cpu(), data["keypoints1"].cpu()))
+    (box, inl), m0, Z, kp = out["card"]
+    (ref_box, ref_inl), ref_m0, ref_Z, ref_kp = out["cpu"]
+    np.testing.assert_array_equal(box, ref_box)
+    assert inl == ref_inl >= 50
+    assert np.abs(box - [160, 96, 416, 352]).max() <= 2
+    # keypoints come sorted by score: near-equal scores may swap slots, so
+    # the gate puts the card's slots in the CPU's order by position
+    gate = superglue.match_gate(m0, Z, ref_m0, ref_Z, 0.2, kp, ref_kp)
+    assert gate.ok, gate

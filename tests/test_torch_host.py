@@ -15,6 +15,7 @@ from onepose_tpu import evaluators as jeval
 from onepose_tpu.datasets import anno as janno
 from onepose_tpu.runtime import loader as jloader
 from onepose_tpu.sfm import extract as jextract
+from onepose_tpu.utils import colmap_io as jcolmap
 from onepose_tpu.utils import geometry as jgeo
 from onepose_tpu.utils import path_utils as jpath
 from onepose_tpu.utils import vis_utils as jvis
@@ -23,6 +24,7 @@ from onepose_tpu_torch import evaluators as teval
 from onepose_tpu_torch.datasets import anno as tanno
 from onepose_tpu_torch.runtime import loader as tloader
 from onepose_tpu_torch.sfm import extract as textract
+from onepose_tpu_torch.utils import colmap_io as tcolmap
 from onepose_tpu_torch.utils import geometry as tgeo
 from onepose_tpu_torch.utils import path_utils as tpath
 from onepose_tpu_torch.utils import vis_utils as tvis
@@ -180,3 +182,95 @@ def test_export_scene_html_equal(tmp_path):
     ref = jvis.export_scene_html(str(tmp_path / "j.html"), **kw)
     assert open(got).read() == open(ref).read()
     assert os.path.getsize(got) > 1000
+
+
+@pytest.mark.parametrize("rot,shift,inv", [
+    (0.0, (0.0, 0.0), False), (17.5, (0.1, -0.2), False),
+    (-30.0, (0.0, 0.0), True)])
+def test_get_affine_transform_equal(rot, shift, inv):
+    rng = np.random.default_rng(6)
+    for _ in range(5):
+        center = rng.uniform(0, 600, 2)
+        scale = rng.uniform(20, 400, 2)
+        out = rng.integers(64, 640, 2)
+        np.testing.assert_array_equal(
+            tgeo.get_affine_transform(center, scale, rot, out, shift, inv),
+            jgeo.get_affine_transform(center, scale, rot, out, shift, inv))
+    np.testing.assert_array_equal(
+        tgeo.get_affine_transform([5, 6], 100.0, rot, [64, 48]),
+        jgeo.get_affine_transform([5, 6], 100.0, rot, [64, 48]))
+
+
+def test_crop_resize_and_K_equal(tmp_path):
+    pytest.importorskip("cv2")
+    rng = np.random.default_rng(7)
+    img = rng.uniform(0, 255, (120, 160)).astype(np.float32)
+    K = np.array([[300.0, 0, 80], [0, 310.0, 60], [0, 0, 1]])
+    for box, shape in (([10, 20, 90, 100], (64, 64)),
+                       ([-5, 3, 170, 90], (48, 80))):
+        for got, ref in zip(tgeo.get_image_crop_resize(img, box, shape),
+                            jgeo.get_image_crop_resize(img, box, shape)):
+            np.testing.assert_array_equal(got, ref)
+        for k in (K, np.concatenate([K, np.ones((3, 1))], 1)):
+            for got, ref in zip(tgeo.get_K_crop_resize(box, k, shape),
+                                jgeo.get_K_crop_resize(box, k, shape)):
+                np.testing.assert_array_equal(got, ref)
+    path = tmp_path / "intrinsics.txt"
+    path.write_text("fx: 501.5\nfy: 499.25\ncx: 320.0\ncy: 241.75\n")
+    for got, ref in zip(tgeo.get_K(str(path)), jgeo.get_K(str(path))):
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_colmap_readers_equal(tmp_path):
+    """A model written by the JAX package's writers reads back the same
+    through both packages' readers, field by field."""
+    rng = np.random.default_rng(8)
+    cams = {i: jcolmap.Camera(i, m, 640, 480, rng.normal(size=n))
+            for i, (m, n) in enumerate([("PINHOLE", 4), ("OPENCV", 8),
+                                        ("SIMPLE_RADIAL", 4)], start=1)}
+    images = {}
+    for i in range(1, 6):
+        n = int(rng.integers(0, 20))
+        images[i] = jcolmap.Image(
+            i, rng.normal(size=4), rng.normal(size=3), 1 + i % 3,
+            f"seq-{i}/color/{i * 7}.png", rng.uniform(0, 640, (n, 2)),
+            rng.integers(-1, 50, n).astype(np.int64))
+    points = {}
+    for pid in range(40):
+        t = int(rng.integers(1, 6))
+        points[pid] = jcolmap.Point3D(
+            pid, rng.normal(size=3), rng.integers(0, 256, 3).astype(np.uint8),
+            float(rng.uniform(0, 2)), rng.integers(1, 6, t).astype(np.int32),
+            rng.integers(0, 20, t).astype(np.int32))
+    jcolmap.write_model(cams, images, points, str(tmp_path))
+    got = tcolmap.read_model(str(tmp_path))
+    ref = jcolmap.read_model(str(tmp_path))
+    for g, r in zip(got, ref):
+        assert g.keys() == r.keys()
+        for k in g:
+            for f in vars(r[k]):
+                a, b = getattr(g[k], f), getattr(r[k], f)
+                if isinstance(b, np.ndarray):
+                    assert a.dtype == b.dtype, f
+                    np.testing.assert_array_equal(a, b, err_msg=f)
+                else:
+                    assert a == b, f
+    assert len(got[1]) == 5 and len(got[2]) == 40
+
+
+def test_sample_ref_views_equal(tmp_path):
+    """The detector entry's view sampling reads the SfM model with the
+    port's reader and picks what the root script picks."""
+    import feature_matching_object_detector as jfm
+    from onepose_tpu_torch import feature_matching_object_detector as tfm
+
+    model_dir = tmp_path / "obj" / "outputs_superpoint_superglue" / "sfm_ws"
+    images = {i: jcolmap.Image(i, np.zeros(4), np.zeros(3), 1,
+                               f"/data/db/{i}.png", np.zeros((0, 2)),
+                               np.zeros(0, np.int64))
+              for i in (4, 1, 9, 2, 7, 3, 5)}
+    jcolmap.write_model({1: jcolmap.Camera(1, "PINHOLE", 8, 8, np.ones(4))},
+                        images, {}, str(model_dir / "model"))
+    for n in (1, 3, 15):
+        args = (str(tmp_path / "obj"), "superpoint", "superglue", n)
+        assert tfm.sample_ref_views(*args) == jfm.sample_ref_views(*args)

@@ -1,5 +1,5 @@
-"""Boundaries of the PyTorch port: it never imports JAX nor the JAX
-package, importing it builds nothing, its pipeline pins fp32 and runs on
+"""Boundaries of the PyTorch port: it never imports JAX, the JAX package
+nor the repository's root scripts, importing it builds nothing, its pipeline pins fp32 and runs on
 the card unless asked for the CPU, and chip_smoke.py has no CPU path."""
 import ast
 import glob
@@ -43,11 +43,20 @@ def test_port_never_imports_jax():
     assert int(out.stdout.split()[-1]) >= 12
 
 
+# the JAX system's root scripts, importable as top-level modules from the
+# repository root (inference.py, feature_matching_object_detector.py, ...);
+# chip_smoke.py is the port's own
+ROOT_SCRIPTS = sorted(os.path.basename(f)[:-3]
+                      for f in glob.glob(os.path.join(REPO, "*.py"))
+                      if os.path.basename(f) != "chip_smoke.py")
+
+
 def _jax_package_imports(path):
-    """(line, module) of every import of ``onepose_tpu`` or a module in
-    it in the Python file at ``path``."""
+    """(line, module) of every import of ``onepose_tpu``, a module in it
+    or a root script of the repository in the Python file at ``path``."""
     def hit(name):
-        return name == "onepose_tpu" or name.startswith("onepose_tpu.")
+        return any(name == m or name.startswith(m + ".")
+                   for m in ("onepose_tpu", *ROOT_SCRIPTS))
 
     found = []
     for node in ast.walk(ast.parse(open(path).read(), path)):
@@ -56,13 +65,18 @@ def _jax_package_imports(path):
         elif (isinstance(node, ast.ImportFrom) and node.level == 0
               and hit(node.module or "")):
             found.append((node.lineno, node.module))
-    return found
+    return sorted(found)
 
 
 def test_port_never_imports_the_jax_package():
     files = sorted(glob.glob(os.path.join(REPO, "onepose_tpu_torch", "**",
                                           "*.py"), recursive=True))
-    assert len(files) >= 20
+    assert len(files) >= 26
+    rel = {os.path.relpath(f, os.path.join(REPO, "onepose_tpu_torch"))
+           for f in files}
+    assert {"serving.py", "detector.py", "feature_matching_object_detector.py",
+            "models/superglue.py", "ops/similarity.py",
+            "utils/colmap_io.py"} <= rel
     files += [os.path.join(REPO, "chip_smoke.py"),
               os.path.join(REPO, "tests", "test_torch_cuda.py")]
     bad = {os.path.relpath(f, REPO): _jax_package_imports(f) for f in files}
@@ -75,10 +89,15 @@ def test_import_scan_sees_jax_package_imports(tmp_path):
                    "from onepose_tpu.utils import geometry\n"
                    "from onepose_tpu_torch import pipeline\n"
                    "def f():\n    import onepose_tpu.config as c\n"
-                   "from . import onepose_tpu\n")
+                   "from . import onepose_tpu\n"
+                   "import feature_matching_object_detector as fm\n"
+                   "from onepose_tpu_torch import inference\n"
+                   "from inference import main\n")
+    assert "inference" in ROOT_SCRIPTS
     assert _jax_package_imports(str(src)) == [
         (1, "onepose_tpu"), (3, "onepose_tpu.utils"),
-        (6, "onepose_tpu.config")]
+        (6, "onepose_tpu.config"), (8, "feature_matching_object_detector"),
+        (10, "inference")]
 
 
 def _tiny_pipeline_args(rng):
