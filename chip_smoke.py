@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``onepose_tpu_torch/csrc`` at
 first use (into ``build/onepose_tpu_torch/``, counted in this run's time)
-and runs nine phases; weights and inputs come from fixed seeds.
+and runs ten phases; weights and inputs come from fixed seeds.
 
   1. card name and power limit (nvidia-smi);
   2. kernel build time, ptxas register use, and the count of tensor-core
@@ -43,11 +43,28 @@ and runs nine phases; weights and inputs come from fixed seeds.
      pasted into the frame) recovered within 1 px; ``detect_bbox`` on the
      card vs the CPU under ``superglue.match_gate``, and the card's
      SuperGlue with TF32 products refused by the same gate; detect times
-     split into extract, SuperGlue, RANSAC.
+     split into extract, SuperGlue, RANSAC;
+ 10. the tracked video path on a textured plane with known poses (26
+     frames of 512x512, K as phase 7's, 1024 keypoint slots of D=256, 400
+     of them real): (a) BATracker at its defaults, every tracked frame
+     within 1.5 cm / 1.5 deg of the truth, card vs CPU over frames 1-3
+     with the same injected noise (LK points within 1e-3 px where both
+     track, matches and assignments equal, poses within 1e-4), uint8
+     frames bit-identical to float32 ones on the card, ms a frame of
+     ``track()`` split by CUDA events at the tracker's stage marks, one
+     frame profiled; (b) the demo's path, ``PosePipeline`` at batch 1
+     (phase 7's model and DB shape) then ``inference_demo.apply_tracking``,
+     the DB planted on the plane for frame 0's matches: both kernels
+     launched once a frame, frame 0's PnP pose within phase 8's bound,
+     card vs CPU over frames 0-3 (PnP inliers equal, PnP poses within
+     0.05 deg / 0.05 cm, sources equal, tracked poses within phase 8's
+     0.5 deg / 0.5 cm, every NN flip a near-tie), ms a frame split into
+     pipeline and tracking; the stem at [1,512,512,1] and the match at
+     [1,1024,256]x[1,2000,256] against their plain versions.
 
-Each main path (phases 7, 8 and 9) is driven once with the launch counts
-set to 0 just before it and read just after; the kernels line sums those
-counts. Every phase's launches, comparisons included, are in the JSON.
+Each main path (phases 7, 8, 9 and 10b) is driven once with the launch
+counts set to 0 just before it and read just after; the kernels line sums
+those counts. Every phase's launches, comparisons included, are in the JSON.
 Detailed results go to ``DIR/chip_smoke.json`` and ``DIR/profile.txt``
 (default ``build/chip_smoke``). Any failed phase makes the script exit 1
 without the kernels line and the final line. The last line of a passing
@@ -82,6 +99,16 @@ KMAT = np.array([[460.0, 0, W / 2], [0, 460.0, H / 2], [0, 0, 1]],
 N_OBJECTS = 8                      # resident objects of phase 8
 N_VIEWS, FRAME_HW = 15, (1440, 1920)   # phase 9: DB views, query frame
 PASTE_XY, PASTED_VIEW = (648, 464), 7  # multiples of 8
+# phase 10: a keyframe, 6 warm-up frames, 18 timed, 1 profiled; the CPU
+# side of each card-vs-CPU comparison runs the first 4 frames
+TRACK_FRAMES, TRACK_WARMUP, TRACK_TIMED, CPU_FRAMES = 26, 6, 18, 4
+TRACK_HYP = 256                    # BATracker's default hypotheses
+TRACK_DEG, TRACK_CM = 1.5, 1.5     # tests/test_tracker.py's bound
+TRACK_PX = 1e-3                    # card vs CPU LK points, px
+TRACK_POSE = 1e-4                  # card vs CPU tracked pose, per entry
+# 10b, card vs CPU tracked poses once a step decided differently: twice
+# the largest reading on an H100 (0.063-0.072 deg, 0.017-0.028 cm)
+DEMO_DIVERGED_DEG, DEMO_DIVERGED_CM = 0.15, 0.06
 
 
 def log(*args):
@@ -106,8 +133,10 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
 def device_profile(fn):
     """Profile one call of ``fn``: kernels (and copies) run on the card,
     the union of their device intervals (busy ms), the window from the
-    first start to the last end, and the top of the kernel table. The
-    profiler slows the host, so the busy share is a lower bound."""
+    first start to the last end, the host's waits on the card (CUDA
+    runtime ``*Synchronize`` calls, the profiler's closing one included)
+    and the top of the kernel table. The profiler slows the host, so the
+    busy share is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -127,8 +156,10 @@ def device_profile(fn):
             e0 = max(e0, e)
     busy += e0 - s0
     window = spans[-1][1] - spans[0][0]
+    syncs = sum(1 for e in prof.events() if "Synchronize" in e.name)
     stats = {"device_ops": len(spans), "busy_ms": busy / 1e3,
-             "window_ms": window / 1e3, "busy_share": busy / window}
+             "window_ms": window / 1e3, "busy_share": busy / window,
+             "host_syncs": syncs}
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=15)
     return stats, table
@@ -273,35 +304,41 @@ class Smoke:
 
     # -- 4 ----------------------------------------------------------------
     def match(self):
-        from onepose_tpu_torch.ops import match
-
-        stats = {}
         for b, n1, n2 in ((B, K_PTS, SHAPE3D), (2, 1000, 1990)):
             for kind in ("random", "peaked"):
-                rng = np.random.default_rng(1)
-                d0 = unit(rng.normal(size=(b, n1, 256)))
-                d1 = unit(rng.normal(size=(b, n2, 256)))
-                if kind == "peaked":
-                    d1[:, :n1] = unit(d0 + 0.05 * rng.normal(size=d0.shape))
-                d0, d1 = (torch.from_numpy(x).to(self.dev) for x in (d0, d1))
-                got = match.dual_softmax_argmax(d0, d1, 0.07)
-                torch.cuda.synchronize()
-                gate = match.match_gate(got, d0, d1, 0.07)
-                ms = cuda_ms(lambda: match.dual_softmax_argmax(d0, d1, 0.07))
-                plain_ms = cuda_ms(lambda: match.match_reference(d0, d1, 0.07))
-                bound_ms, bound_by = match_bound_ms(b, n1, n2, 256)
-                key = f"[{b},{n1},256]x[{b},{n2},256] {kind}"
-                stats[key] = {**dataclasses.asdict(gate), "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by}
-                self.check(gate.ok,
-                           f"match {key}: max rel err {gate.max_rel_err:.3e} "
-                           f"(gate {match.GATE_REL:.0e}), index mismatches "
-                           f"outside near-ties {gate.bad_idx} (all "
-                           f"{gate.idx_diff}, near-tie rows+cols "
-                           f"{gate.near_ties}); kernel {ms:.3f} ms, plain "
-                           f"{plain_ms:.3f} ms")
-        self.results["match"] = stats
+                self.match_case(b, n1, n2, kind)
+
+    def match_case(self, b, n1, n2, kind):
+        """The match kernel vs plain on unit descriptors [b,n1,256] x
+        [b,n2,256], random or peaked (DB slots j < n1 noisy copies of
+        query j), under ``match_gate``, with both times and the bound,
+        into results["match"]."""
+        from onepose_tpu_torch.ops import match
+
+        rng = np.random.default_rng(1)
+        d0 = unit(rng.normal(size=(b, n1, 256)))
+        d1 = unit(rng.normal(size=(b, n2, 256)))
+        if kind == "peaked":
+            d1[:, :n1] = unit(d0 + 0.05 * rng.normal(size=d0.shape))
+        d0, d1 = (torch.from_numpy(x).to(self.dev) for x in (d0, d1))
+        got = match.dual_softmax_argmax(d0, d1, 0.07)
+        torch.cuda.synchronize()
+        gate = match.match_gate(got, d0, d1, 0.07)
+        ms = cuda_ms(lambda: match.dual_softmax_argmax(d0, d1, 0.07))
+        plain_ms = cuda_ms(lambda: match.match_reference(d0, d1, 0.07))
+        bound_ms, bound_by = match_bound_ms(b, n1, n2, 256)
+        key = f"[{b},{n1},256]x[{b},{n2},256] {kind}"
+        self.results.setdefault("match", {})[key] = {
+            **dataclasses.asdict(gate), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        self.check(gate.ok,
+                   f"match {key}: max rel err {gate.max_rel_err:.3e} "
+                   f"(gate {match.GATE_REL:.0e}), index mismatches "
+                   f"outside near-ties {gate.bad_idx} (all "
+                   f"{gate.idx_diff}, near-tie rows+cols "
+                   f"{gate.near_ties}); kernel {ms:.3f} ms, plain "
+                   f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                   f"({bound_by})  [{self.smi}]")
 
     # -- 5 ----------------------------------------------------------------
     def known_pose(self):
@@ -799,6 +836,353 @@ class Smoke:
             + f"; busy {stats['profile']['busy_ms']:.3f} ms, share "
             f"{stats['profile']['busy_share']:.3f}  [{self.smi}]")
 
+    # -- 10 ---------------------------------------------------------------
+    def plane(self):
+        """Phase 10's sequence (both halves): a textured plane at 512x512,
+        1024 keypoint slots of D=256, 400 of them real."""
+        from onepose_tpu_torch.utils.synthetic import plane_sequence
+
+        if not hasattr(self, "_plane"):
+            self._plane = plane_sequence(np.random.default_rng(10),
+                                         TRACK_FRAMES)
+        return self._plane
+
+    def tracking(self):
+        """10a: BATracker (defaults: win 10, 256 hypotheses, 8 BA
+        iterations, max_obs 4096) over the plane sequence on the card."""
+        from onepose_tpu_torch import tracker as ttr
+        from onepose_tpu_torch.utils import geometry as geo
+
+        K, pts3d, frames = self.plane()
+        stats = self.results["tracker"] = {}
+        gen = torch.Generator().manual_seed(10)
+        noises = [ttr.draw_track_noise(K_PTS, K_PTS, TRACK_HYP, gen)
+                  for _ in frames[1:]]
+
+        def seeded(device):
+            tr = ttr.BATracker(device=device)
+            f0 = frames[0]
+            if not tr.add_keyframe(f0["image"], f0["keypoints"],
+                                   f0["descriptors"], f0["mask"], f0["pose"],
+                                   K, mkpts3d=pts3d,
+                                   kpt_indices=np.arange(len(pts3d))):
+                raise RuntimeError("tracker: keyframe 0 refused")
+            return tr
+
+        # the card over the sequence: every frame's wall time and stage
+        # split (CUDA events at the tracker's stage marks), the last frame
+        # under the profiler
+        tr = seeded(self.dev)
+        wall, splits, steps, errs = [], [], [], []
+        for i, fr in enumerate(frames[1:], 1):
+            noise = to_device(noises[i - 1], self.dev)
+            args = (fr["image"], fr["keypoints"], fr["descriptors"],
+                    fr["mask"], K)
+            if i == len(frames) - 1:
+                tr.mark = None
+                box = []
+                stats["profile"], table = device_profile(
+                    lambda: box.append(tr.track(*args, noise=noise)))
+                pose, info = box[0]
+                with open(os.path.join(self.out_dir, "profile.txt"),
+                          "a") as f:
+                    f.write(f"\n== tracked frame: {stats['profile']}\n"
+                            f"{table}")
+            else:
+                pose, info, ms, split = timed_track(tr, args, noise)
+                if i > TRACK_WARMUP:
+                    wall.append(ms)
+                    splits.append(split)
+            steps.append(info["step"])
+            errs.append(geo.query_pose_error(pose, fr["pose"]))
+        r_max = max(e[0] for e in errs)
+        t_max = max(e[1] for e in errs)
+        stats["max_err_deg_cm"] = [r_max, t_max]
+        self.check(len(wall) == TRACK_TIMED and r_max < TRACK_DEG
+                   and t_max < TRACK_CM,
+                   f"tracker: {len(errs)} tracked frames within "
+                   f"{r_max:.4f} deg, {t_max:.4f} cm of the truth "
+                   f"(bound {TRACK_DEG} deg / {TRACK_CM} cm)")
+
+        split_med = {k: float(np.median([s[k] for s in splits]))
+                     for k in splits[0]}
+        step_ms = [sum(sp[k] for k in ("lk", "flow_pnp", "nn", "pnp", "tri"))
+                   for sp in splits]
+        ba_ms = [sp["host"] + sp["ba"] for sp in splits]
+        stats["track_ms"] = {"median": float(np.median(wall)),
+                             "min": min(wall), "max": max(wall), "all": wall}
+        stats["step_ms_median"] = float(np.median(step_ms))
+        stats["ba_ms_median"] = float(np.median(ba_ms))
+        stats["stage_ms_median"] = split_med
+        log(f"   track() a frame: median {stats['track_ms']['median']:.3f} "
+            f"ms (min {min(wall):.3f}, max {max(wall):.3f}) over "
+            f"{len(wall)} frames; track step {stats['step_ms_median']:.3f} "
+            f"ms, window BA {stats['ba_ms_median']:.3f} ms; stages "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split_med.items())
+            + f"; one frame profiled: {stats['profile']['device_ops']} "
+            f"device ops, {stats['profile']['host_syncs']} host syncs, busy "
+            f"{stats['profile']['busy_ms']:.3f} ms, share "
+            f"{stats['profile']['busy_share']:.3f}  [{self.smi}]")
+
+        # card vs CPU on the first frames, the same injected noise
+        cpu = seeded("cpu")
+        diffs = []
+        for i, fr in enumerate(frames[1:CPU_FRAMES], 1):
+            pose, info = cpu.track(fr["image"], fr["keypoints"],
+                                   fr["descriptors"], fr["mask"], K,
+                                   noise=noises[i - 1])
+            c, g = info["step"], steps[i - 1]
+            both = c.flow_status & g.flow_status
+            px = float((c.flow_points - g.flow_points)[both].abs().max())
+            pose_d = float(np.abs(pose - tr.pose_history[i]).max())
+            diffs.append({
+                "lk_px": px, "status_diff": int((c.flow_status
+                                                 != g.flow_status).sum()),
+                "m0_equal": torch.equal(c.m0, g.m0),
+                "keep_equal": torch.equal(c.keep, g.keep),
+                "pose": pose_d})
+        stats["card_vs_cpu"] = diffs
+        self.check(all(d["lk_px"] <= TRACK_PX and d["m0_equal"]
+                       and d["keep_equal"] and d["pose"] <= TRACK_POSE
+                       for d in diffs),
+                   f"tracker: card vs CPU over frames 1-{CPU_FRAMES - 1}: "
+                   f"LK points {max(d['lk_px'] for d in diffs):.2e} px apart "
+                   f"where both track (bound {TRACK_PX}), statuses differ at "
+                   f"{[d['status_diff'] for d in diffs]}, m0 and keep equal "
+                   f"{[d['m0_equal'] and d['keep_equal'] for d in diffs]}, "
+                   f"poses {max(d['pose'] for d in diffs):.2e} apart (bound "
+                   f"{TRACK_POSE})")
+
+        # uint8 frames against their float32 frames, on the card
+        runs = {}
+        for name in ("uint8", "float32"):
+            t8 = seeded(self.dev)
+            out = []
+            for i, fr in enumerate(frames[1:CPU_FRAMES], 1):
+                u8 = np.clip(np.round(fr["image"] * 255.0), 0, 255).astype(
+                    np.uint8)
+                img = u8 if name == "uint8" else (u8.astype(np.float32)
+                                                  / np.float32(255.0))
+                pose, info = t8.track(img, fr["keypoints"],
+                                      fr["descriptors"], fr["mask"], K,
+                                      noise=to_device(noises[i - 1],
+                                                      self.dev))
+                out.append((pose, info["step"]))
+            runs[name] = out
+        same = all(np.array_equal(a[0], b[0])
+                   and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+                   for a, b in zip(runs["uint8"], runs["float32"]))
+        stats["uint8_bit_identical"] = same
+        self.check(same, f"tracker: uint8 frames bit-identical to their "
+                   f"float32 frames on the card over {CPU_FRAMES - 1} frames")
+
+    def demo(self):
+        """10b: the demo's tracked path, PosePipeline at batch 1 and then
+        apply_tracking, over the same frames, with the kernels."""
+        from onepose_tpu_torch import inference_demo, pipeline
+        from onepose_tpu_torch import tracker as ttr
+        from onepose_tpu_torch.ops import epnp
+        from onepose_tpu_torch.sfm.extract import CONFS
+        from onepose_tpu_torch.utils import geometry as geo
+        from onepose_tpu_torch.utils.synthetic import plant_on_plane
+
+        K, _, frames = self.plane()
+        K32 = K.astype(np.float32)
+        stats = self.results["demo"] = {}
+        rng = np.random.default_rng(11)
+        sp_model, gats_model = random_models(rng)
+        db = random_db(rng, points=SHAPE3D - 8, shape3d=SHAPE3D, leaf=LEAF,
+                       obs=(LEAF, LEAF * 3))
+        sp_conf = dict(CONFS["superpoint"]["conf"])   # the demo's extract conf
+        sp_conf["max_keypoints"] = K_PTS
+        # random weights: every mutual nearest neighbour is a match
+        kw = dict(sp_config=sp_conf, gats_config={"match_threshold": 0.0},
+                  num_hypotheses=HYP, refine_iters=5)
+        gen = torch.Generator().manual_seed(11)
+        noises = [inference_demo.DemoNoise(
+            epnp.draw_noise(1, K_PTS, HYP, 64, gen),
+            ttr.draw_track_noise(K_PTS, K_PTS, TRACK_HYP, gen))
+            for _ in frames]
+
+        # plant the DB's points matched in frame 0 on the plane
+        probe = pipeline.PosePipeline(sp_model, gats_model, db,
+                                      device=self.dev, **kw)(
+            frames[0]["image"][None, :, :, None], K32[None],
+            noise=to_device(noises[0].pose, self.dev))
+        db = plant_on_plane(db, probe.matches0[0].cpu().numpy(),
+                            probe.keypoints2d[0].cpu().numpy(), K,
+                            frames[0]["pose"])
+        del probe
+
+        def run():
+            """Every frame through pose_frame on the card: (DemoFrames,
+            wall ms, pipeline ms, the pipeline's outputs on the host, the
+            tracker's steps)."""
+            pipe = TimedCall(pipeline.PosePipeline(
+                copy.deepcopy(sp_model), copy.deepcopy(gats_model), db,
+                device=self.dev, **kw))
+            tracker, steps = keeping_steps(ttr.BATracker(device=self.dev))
+            out, wall, pipe_out = [], [], []
+            for fi, fr in enumerate(frames):
+                t0 = time.perf_counter()
+                out.append(inference_demo.pose_frame(
+                    pipe, tracker, db.keypoints3d, fr["image"], K32, fi,
+                    noise=to_device(noises[fi], self.dev)))
+                wall.append((time.perf_counter() - t0) * 1e3)
+                pipe_out.append(type(pipe.last)(
+                    *(x.cpu() for x in pipe.last)))   # batch 1
+            return out, wall, pipe.ms, pipe_out, steps
+
+        card, wall, pipe_ms, card_pipe, card_steps = self.path_launches(
+            "demo", run)
+        got = self.results["launches"]["demo"]
+        self.check(got["stem"] == got["match"] == len(frames),
+                   f"demo: stem and match launched {got['stem']} and "
+                   f"{got['match']} times for {len(frames)} frames")
+        r0, t0 = geo.query_pose_error(card[0].pose, frames[0]["pose"])
+        stats["frame0"] = {"source": card[0].source,
+                           "inliers": card[0].inliers, "err": [r0, t0]}
+        self.check(card[0].source == "pnp" and card[0].success
+                   and r0 < POSE_DEG and t0 < POSE_CM,
+                   f"demo: frame 0 from {card[0].source} with "
+                   f"{card[0].inliers} inliers, {r0:.4f} deg, {t0:.4f} cm "
+                   f"from the planted pose")
+        sources = [f.source for f in card]
+        stats["sources"] = sources
+        # random SuperPoint weights keep most keypoints on the same pixels
+        # from frame to frame, so the tracked poses drift from the truth:
+        # recorded, not held
+        stats["vs_truth_deg_cm"] = [geo.query_pose_error(f.pose, fr["pose"])
+                                    for f, fr in zip(card, frames)]
+        k0, k1 = (set(map(tuple, o.keypoints2d[0].tolist()))
+                  for o in card_pipe[:2])
+        stats["keypoints_on_frame0_pixels"] = len(k0 & k1) / len(k1)
+        self.check(all(s == "track:flow" for s in sources[1:]),
+                   f"demo: frames 1-{len(frames) - 1} tracked from flow: "
+                   f"{sorted(set(sources[1:]))}")
+
+        # card vs CPU, the pipeline: frames 0-3 through a CPU PosePipeline
+        # with the card's noise. Keypoints come sorted by score, and scores
+        # equal to rounding take each other's slots on the card and the
+        # CPU (ROADMAP Queue 3), while RANSAC's noise is drawn per slot: the
+        # card's noise goes into the CPU's slots.
+        t_cpu = time.perf_counter()
+        cpu_pipe = pipeline.PosePipeline(
+            copy.deepcopy(sp_model), copy.deepcopy(gats_model), db,
+            device="cpu", **kw)
+        pipe_d, same = [], []
+        for fi, fr in enumerate(frames[:CPU_FRAMES]):
+            img = fr["image"][None, :, :, None]
+            own = cpu_pipe.extract(torch.from_numpy(img)).keypoints[0]
+            c = cpu_pipe(img, K32[None], noise=permute_noise(
+                noises[fi].pose, slot_map(card_pipe[fi].keypoints2d[0], own)))
+            g = card_pipe[fi]
+            same.append(bool(g.success[0] == c.success[0]
+                             and g.num_inliers[0] == c.num_inliers[0]))
+            pipe_d.append(geo.query_pose_error(g.poses[0].numpy(),
+                                               c.poses[0].numpy()))
+        self.check(all(same) and all(r < PARITY_DEG and t < PARITY_CM
+                                     for r, t in pipe_d),
+                   f"demo: card vs CPU pipeline over frames 0-"
+                   f"{CPU_FRAMES - 1}: PnP success and inliers equal {same}, "
+                   f"poses within {max(r for r, _ in pipe_d):.5f} deg, "
+                   f"{max(t for _, t in pipe_d):.5f} cm (bound "
+                   f"{PARITY_DEG} / {PARITY_CM})")
+
+        # card vs CPU, the tracking: a CPU tracker fed the card's pipeline
+        # outputs and the card's noise through apply_tracking, so both see
+        # the same inputs. (1) The tracker's NN match, run alone on both
+        # devices from the same descriptors, must equal each step's m0, and
+        # a match that differs must be a near-tie (nn_flips). (2) Before
+        # the first frame whose step decides anything differently (a
+        # match, a gated assignment, a triangulation kept, an LK status, an
+        # inlier count, a flag), the tracked poses agree within TRACK_POSE;
+        # up to and with that frame, whose step still had the same inputs,
+        # the step's poses do. (3) From that frame on, the window BA and
+        # the next steps work from other points and assignments: poses
+        # agree within DEMO_DIVERGED_DEG / DEMO_DIVERGED_CM. Random
+        # SuperPoint keypoints that stay on their pixels make the
+        # triangulation and the BA here ill-conditioned, so such decisions
+        # at their thresholds come early (on an H100: from frame 1).
+        cpu_tr, cpu_steps = keeping_steps(ttr.BATracker(device="cpu"))
+        fed, diffs = [], []
+        for fi, fr in enumerate(frames[:CPU_FRAMES]):
+            fed.append(inference_demo.apply_tracking(
+                cpu_tr, db.keypoints3d, fr["image"], K32, card_pipe[fi], fi,
+                card[fi].pnp_pose, noises[fi].track))
+        for i in range(1, CPU_FRAMES):
+            g, c = card_steps[i - 1], cpu_steps[i - 1]
+            flips = nn_flips(card_pipe[i - 1], card_pipe[i], self.dev)
+            matches = (flips.pop("card_m0"), flips.pop("cpu_m0"))
+            both = c.flow_status & g.flow_status
+            diffs.append({
+                **flips,
+                "steps_are_the_matches": bool(
+                    torch.equal(g.m0, matches[0])
+                    and torch.equal(c.m0, matches[1])),
+                "decided_apart": {
+                    f: int((getattr(g, f) != getattr(c, f)).sum())
+                    for f in ("m0", "keep", "n_keep", "pnp_inliers",
+                              "used_pnp", "flow_ok", "flow_inliers",
+                              "have_init", "tri_good", "flow_status")
+                    if not torch.equal(getattr(g, f), getattr(c, f))},
+                "keep_diff": int((g.keep != c.keep).sum()),
+                "status_diff": int((g.flow_status != c.flow_status).sum()),
+                "lk_px": float((c.flow_points - g.flow_points)[both]
+                               .abs().max()),
+                "flow_inliers": [int(g.flow_inliers), int(c.flow_inliers)],
+                "pnp_inliers": [int(g.pnp_inliers), int(c.pnp_inliers)],
+                "step_pose": float((g.pose - c.pose).abs().max()),
+                "pose": float(np.abs(card[i].pose - fed[i][0]).max()),
+                "pose_deg_cm": geo.query_pose_error(
+                    card[i].pose.astype(np.float64),
+                    fed[i][0].astype(np.float64))})
+        stats["cpu_s"] = time.perf_counter() - t_cpu
+        same = [not d["decided_apart"] for d in diffs]
+        first = same.index(False) if False in same else len(diffs)
+        stats["card_vs_cpu"] = {"pipeline_pose_deg_cm": pipe_d,
+                                "tracking": diffs,
+                                "first_diverged_frame": first + 1}
+        step_apart = [f"{d['step_pose']:.1e}" for d in diffs]
+        apart = [f"{d['pose']:.1e}" for d in diffs]
+        deg_cm = [f"{r:.4f}/{t:.4f}" for r, t in
+                  (d["pose_deg_cm"] for d in diffs)]
+        self.check(
+            [f.source for f in card[:CPU_FRAMES]] == [s for _, s in fed]
+            and all(d["steps_are_the_matches"]
+                    and d["flips"] == d["near_ties"] for d in diffs)
+            and all(d["step_pose"] <= TRACK_POSE for d in diffs[:first + 1])
+            and all(d["pose"] <= TRACK_POSE for d in diffs[:first])
+            and all(d["pose_deg_cm"][0] < DEMO_DIVERGED_DEG
+                    and d["pose_deg_cm"][1] < DEMO_DIVERGED_CM
+                    for d in diffs[first:]),
+            f"demo: card vs CPU tracking on the card's pipeline outputs "
+            f"over frames 1-{CPU_FRAMES - 1}: sources equal; NN match flips "
+            f"{[d['flips'] for d in diffs]}, near-ties "
+            f"{[d['near_ties'] for d in diffs]} (similarities "
+            f"{max(d['sim_diff'] for d in diffs):.1e} apart), each step's "
+            f"m0 these {[d['steps_are_the_matches'] for d in diffs]}; "
+            f"decided apart {[d['decided_apart'] for d in diffs]}; step "
+            f"poses {step_apart} apart (bound {TRACK_POSE} up to frame "
+            f"{first + 1}); poses {apart} apart (bound {TRACK_POSE} up to "
+            f"frame {first}), {deg_cm} deg/cm (bound {DEMO_DIVERGED_DEG} / "
+            f"{DEMO_DIVERGED_CM} from frame {first + 1})")
+
+        # per-frame ms after the warm-up, split into pipeline and tracking
+        w, p = wall[TRACK_WARMUP:], pipe_ms[TRACK_WARMUP:]
+        stats["frame_ms"] = {"median": float(np.median(w)), "all": w}
+        stats["pipeline_ms_median"] = float(np.median(p))
+        stats["tracking_ms_median"] = float(np.median(
+            [a - b for a, b in zip(w, p)]))
+        log(f"   demo frame: median {stats['frame_ms']['median']:.3f} ms "
+            f"over {len(w)} frames, pipeline "
+            f"{stats['pipeline_ms_median']:.3f} ms, tracking "
+            f"{stats['tracking_ms_median']:.3f} ms  [{self.smi}]")
+
+        # the kernels at the demo's shapes, against their plain versions
+        self.stem_case((1, H, W, 1), rng)
+        self.match_case(1, K_PTS, SHAPE3D, "random")
+
     def kernels_line(self):
         st = self.results.get("stem", {}).get(str((B, H, W, 1)), {})
         mt = self.results.get("match", {}).get(
@@ -857,6 +1241,117 @@ def event_ms(fn, iters, warmup):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return times
+
+
+def record_event():
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def timed_track(tracker, args, noise):
+    """One ``tracker.track`` call: (pose, info, wall ms, {stage: ms}),
+    the stages timed by CUDA events recorded at the tracker's marks."""
+    marks = [("start", record_event())]
+    tracker.mark = lambda name: marks.append((name, record_event()))
+    t0 = time.perf_counter()
+    pose, info = tracker.track(*args, noise=noise)
+    wall = (time.perf_counter() - t0) * 1e3
+    marks[-1][1].synchronize()
+    split = {name: prev.elapsed_time(ev)
+             for (_, prev), (name, ev) in zip(marks, marks[1:])}
+    return pose, info, wall, split
+
+
+class TimedCall:
+    """A callable's wrapper that keeps the wall ms of each call, through
+    the card's synchronize, and the last call's output."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.ms = []
+        self.last = None
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        self.last = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return self.last
+
+
+def keeping_steps(tracker):
+    """``tracker`` with its ``track`` wrapped to keep every step's outputs
+    (``info["step"]``), and the list they go to."""
+    steps, track = [], tracker.track
+
+    def track_and_keep(*args, **kwargs):
+        pose, info = track(*args, **kwargs)
+        steps.append(info.get("step"))
+        return pose, info
+
+    tracker.track = track_and_keep
+    return tracker, steps
+
+
+def nn_flips(kf_out, q_out, dev):
+    """The tracker's keyframe→query NN match on the card and on the CPU
+    from the same descriptors (two batch-1 PoseOutputs on the host): the
+    rows whose match differs and how many of them are near-ties, i.e. the
+    card's top-2 similarity gap of the row or of a column it matched, or
+    its best similarity's distance to the 0.7 threshold, within twice the
+    largest card-vs-CPU similarity difference (a flip needs two
+    similarities to swap order, and each moved by at most that much)."""
+    from onepose_tpu_torch.models.nn_matcher import (
+        _unit_rows, mutual_nearest_neighbour)
+
+    args = (kf_out.descriptors2d[0], q_out.descriptors2d[0],
+            kf_out.kpt_mask[0], q_out.kpt_mask[0])
+    m0, sims = [], []
+    for d in (dev, torch.device("cpu")):
+        a = [x.to(d) for x in args]
+        m0.append(mutual_nearest_neighbour(*a, distance_thresh=0.7)
+                  .matches0.cpu())
+        sim = _unit_rows(a[0]) @ _unit_rows(a[1]).T
+        sims.append(torch.where(a[2][:, None] & a[3][None, :], sim, -2.0)
+                    .cpu())
+    tol = 2 * float((sims[0] - sims[1]).abs().max())
+    sim = sims[0]
+    row_gap = sim.topk(2, dim=1).values.diff(dim=1).abs()[:, 0]
+    col_gap = sim.topk(2, dim=0).values.diff(dim=0).abs()[0]
+    to_thresh = (sim.amax(dim=1) - 0.7).abs()
+    rows = torch.nonzero(m0[0] != m0[1])[:, 0].tolist()
+    near = 0
+    for r in rows:
+        cols = [int(m[r]) for m in m0 if m[r] >= 0]
+        near += bool(row_gap[r] <= tol or to_thresh[r] <= tol
+                     or any(col_gap[c] <= tol for c in cols))
+    return {"flips": len(rows), "near_ties": near, "sim_diff": tol / 2,
+            "gaps": [float(row_gap[r]) for r in rows],
+            "cosine_range": [float(sim[sim > -2].min()), float(sim.max())],
+            "card_m0": m0[0], "cpu_m0": m0[1]}
+
+
+def slot_map(ref_kpts: torch.Tensor, kpts: torch.Tensor) -> torch.Tensor:
+    """For each slot of ``kpts`` [K, 2], the slot of ``ref_kpts`` that
+    holds the same position; raises KeyError where the sets differ."""
+    index = {tuple(p): j for j, p in enumerate(ref_kpts.tolist())}
+    return torch.tensor([index[tuple(p)] for p in kpts.tolist()])
+
+
+def permute_noise(noise, slots):
+    """RANSAC noise ``[..., N]`` of a NamedTuple, its last axis taken in
+    the order ``slots``."""
+    return type(noise)(*(x[..., slots] for x in noise))
+
+
+def to_device(noise, device):
+    """A NamedTuple of tensors (or of such tuples) moved to ``device``."""
+    if isinstance(noise, torch.Tensor):
+        return noise.to(device)
+    if noise is None:
+        return None
+    return type(noise)(*(to_device(x, device) for x in noise))
 
 
 def hgmma_by_function(sass: str) -> dict:
@@ -972,6 +1467,8 @@ def main() -> int:
     smoke.phase("7 protocol-shape pipeline", smoke.protocol)
     smoke.phase("8 multi-object serving", smoke.serving)
     smoke.phase("9 feature-matching detector", smoke.detector)
+    smoke.phase("10a keyframe BA tracker", smoke.tracking)
+    smoke.phase("10b tracked demo path", smoke.demo)
     smoke.check("jax" not in sys.modules, "no JAX imported")
 
     smoke.results["failures"] = smoke.failures

@@ -141,9 +141,12 @@ def superpoint_from_state_dict(sd: Mapping) -> SuperPoint:
     return model.eval()
 
 
-def gats_spg_from_state_dict(sd: Mapping, num_blocks: int = 4) -> GATsSPG:
+def gats_spg_from_state_dict(sd: Mapping) -> GATsSPG:
     """Reference ``GATsSPG.ckpt`` keys (``matcher.`` already stripped) →
-    :class:`GATsSPG`."""
+    :class:`GATsSPG`, the number of blocks read from the keys."""
+    num_blocks = len({k.split(".")[2] for k in sd
+                      if k.startswith("gnn.layers.")}) // 3
+
     def conv1d(prefix: str, name: str):
         return {f"{prefix}.weight": _t(sd[f"{name}.weight"])[:, :, 0],
                 f"{prefix}.bias": _t(sd[f"{name}.bias"])}

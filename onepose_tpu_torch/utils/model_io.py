@@ -29,11 +29,11 @@ def load_superpoint(path: str) -> SuperPoint:
         convert.load_state_dict(path, strip_prefixes=("extractor.",)))
 
 
-def load_gats_spg(path: str, num_blocks: int = 4) -> GATsSPG:
+def load_gats_spg(path: str) -> GATsSPG:
+    """GATsSPG from a reference checkpoint, its depth read from the keys."""
     _check_torch_ckpt(path)
     return convert.gats_spg_from_state_dict(
-        convert.load_state_dict(path, strip_prefixes=("matcher.",)),
-        num_blocks)
+        convert.load_state_dict(path, strip_prefixes=("matcher.",)))
 
 
 def load_superglue(path: str) -> SuperGlue:

@@ -1,12 +1,16 @@
-"""Dataset directory layout, the parts the port's inference reads (its own
-copy of those functions of ``onepose_tpu/utils/path_utils.py``).
+"""Dataset directory layout, the parts the port's inference and demo read
+(its own copy of those functions of ``onepose_tpu/utils/path_utils.py``).
 
-data_root/<seq>/
-    color/          crops for GT_box mode
-    color_det/      detector crops
-    poses_ba/       GT object poses (txt, 4x4)
-    intrin_ba/      per-frame crop intrinsics (txt, 3x3)
-    intrin_det/     detector-crop intrinsics
+data_root/
+    box3d_corners.txt
+    <seq>/
+        intrinsics.txt  full-frame intrinsics
+        color_full/     full frames
+        color/          crops for GT_box mode
+        color_det/      detector crops
+        poses_ba/       GT object poses (txt, 4x4)
+        intrin_ba/      per-frame crop intrinsics (txt, 3x3)
+        intrin_det/     detector-crop intrinsics
 
 sfm_model_dir/outputs_<detection>_<matching>/anno/
     anno_3d_average.npz  anno_3d_collect.npz  idxs.npy
@@ -30,6 +34,14 @@ def get_intrin_path_by_color(color_path: str,
         return color_path.replace("/color_det/", "/intrin_det/").replace(
             ".png", ".txt")
     raise NotImplementedError(det_type)
+
+
+def get_intrin_full_path(seq_root: str) -> str:
+    return osp.join(seq_root, "intrinsics.txt")
+
+
+def get_3d_box_path(data_root: str) -> str:
+    return osp.join(data_root, "box3d_corners.txt")
 
 
 def get_anno_dir(sfm_model_dir: str, detection: str = "superpoint",

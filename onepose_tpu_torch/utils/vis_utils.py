@@ -1,8 +1,11 @@
-"""Scene export for the port: one self-contained HTML file with an
-interactive 3D view of an object's points and the estimated cameras.
+"""Visualization for the port: the demo's frame rendering (``reproj``,
+``draw_3d_box``, ``save_demo_image``, ``make_video``) and the scene export,
+one self-contained HTML file with an interactive 3D view of an object's
+points and the estimated cameras.
 
-The port's own copy of ``export_scene_html`` (and its page template) from
-``onepose_tpu/utils/vis_utils.py``.
+The port's own copies of those functions (and the page template) of
+``onepose_tpu/utils/vis_utils.py``; cv2 is imported inside the functions
+that draw or write images.
 """
 from __future__ import annotations
 
@@ -13,6 +16,71 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+
+# 12 edges of a box given the reference corner ordering (bottom 0-3, top 4-7)
+BOX_EDGES = [
+    (0, 1), (1, 2), (2, 3), (3, 0),
+    (4, 5), (5, 6), (6, 7), (7, 4),
+    (0, 4), (1, 5), (2, 6), (3, 7),
+]
+
+
+def reproj(K: np.ndarray, pose: np.ndarray, pts3d: np.ndarray) -> np.ndarray:
+    """Project [n,3] object points with 3x4/4x4 pose → [n,2] pixels."""
+    pose = np.asarray(pose, np.float64)
+    R, t = pose[:3, :3], pose[:3, 3]
+    cam = np.asarray(pts3d) @ R.T + t
+    uv = cam @ np.asarray(K).T
+    return uv[:, :2] / uv[:, 2:3]
+
+
+def draw_3d_box(image: np.ndarray, corners_2d: np.ndarray,
+                color=(0, 0, 255), thickness: int = 2) -> np.ndarray:
+    """Draw the projected 3D box wireframe on a BGR image (in place)."""
+    import cv2
+
+    c = np.asarray(corners_2d).astype(int)
+    for a, b in BOX_EDGES:
+        cv2.line(image, tuple(c[a]), tuple(c[b]), color, thickness)
+    return image
+
+
+def save_demo_image(pose_pred: np.ndarray, K: np.ndarray,
+                    image: np.ndarray, box3d_corners: np.ndarray,
+                    draw_box: bool, save_path: str) -> np.ndarray:
+    """Overlay the estimated 3D box on a frame and write it."""
+    import cv2
+
+    img = image.copy()
+    if img.ndim == 2:
+        img = cv2.cvtColor(img, cv2.COLOR_GRAY2BGR)
+    if draw_box and pose_pred is not None:
+        corners_2d = reproj(K, pose_pred, box3d_corners)
+        draw_3d_box(img, corners_2d)
+    os.makedirs(osp.dirname(save_path) or ".", exist_ok=True)
+    cv2.imwrite(save_path, img)
+    return img
+
+
+def make_video(image_dir: str, output_path: str, fps: int = 24):
+    """Assemble numbered PNGs into an mp4."""
+    import cv2
+    import glob
+
+    frames = sorted(
+        glob.glob(osp.join(image_dir, "*.png")),
+        key=lambda p: int(osp.splitext(osp.basename(p))[0]))
+    if not frames:
+        return None
+    first = cv2.imread(frames[0])
+    h, w = first.shape[:2]
+    os.makedirs(osp.dirname(output_path) or ".", exist_ok=True)
+    writer = cv2.VideoWriter(
+        output_path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    for p in frames:
+        writer.write(cv2.imread(p))
+    writer.release()
+    return output_path
 
 _SCENE_HTML = """<!doctype html><html><head><meta charset="utf-8">
 <title>{title}</title><style>

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-paths that run them (pipeline, serving, detector) against the CPU, on a
-card.
+paths that run them (pipeline, serving, detector) and the tracker against
+the CPU, on a card.
 
 Needs an NVIDIA GPU and nvcc; skips without a card. This file imports no
 JAX, so it also runs where JAX is not installed:
@@ -17,7 +17,9 @@ step's matches and poses equal to per-object pipelines (poses within
 1e-4); the detector's box and inliers equal to the CPU's, its log
 assignment within superglue.GATE_REL = 5e-5 of the CPU's scale and
 matches0 equal except in the near-ties that difference explains
-(``superglue.match_gate``)."""
+(``superglue.match_gate``); the tracker's LK points within 1e-3 px of the
+CPU's with equal status, its matches and assignments equal and its poses
+within 1e-4 of the CPU's, uint8 frames bit-identical to float32 ones."""
 import copy
 
 import numpy as np
@@ -307,3 +309,114 @@ def test_detect_bbox_card_matches_cpu(cuda):
     # the gate puts the card's slots in the CPU's order by position
     gate = superglue.match_gate(m0, Z, ref_m0, ref_Z, 0.2, kp, ref_kp)
     assert gate.ok, gate
+
+
+# ---------------------------------------------------------------------------
+# the tracker (no kernel of its own: LK, NN, PnP and LM are torch ops)
+# ---------------------------------------------------------------------------
+
+def _plane(hw=160, frames=4):
+    from onepose_tpu_torch.utils.synthetic import plane_sequence
+
+    return plane_sequence(np.random.default_rng(0), frames, hw=hw,
+                          focal=150.0 * hw / 160, n_points=48, slots=64,
+                          desc_dim=64, rot_step=(0.06, 0.1, 0.02),
+                          trans_step=(0.01, -0.005))
+
+
+def test_lk_on_card_matches_cpu(cuda):
+    """LK at the demo's 512x512 with 400 points: the same status, points
+    within 1e-3 px (the same gathers; fp32 blends in another order)."""
+    from onepose_tpu_torch.utils.synthetic import plane_sequence
+    from onepose_tpu_torch.ops import lk_flow
+
+    _, _, frames = plane_sequence(np.random.default_rng(1), 2)
+    args = [torch.from_numpy(x) for x in (frames[0]["image"],
+                                          frames[1]["image"],
+                                          frames[0]["keypoints"])]
+    cpu = lk_flow.pyramid_lk(*args)
+    card = lk_flow.pyramid_lk(*(a.to(cuda) for a in args))
+    status = cpu.status
+    assert torch.equal(card.status.cpu(), status) and status.sum() >= 300
+    torch.testing.assert_close(card.points.cpu()[status], cpu.points[status],
+                               rtol=0, atol=1e-3)
+
+
+def _run_tracker(device, frames, K, pts3d, noises, as_uint8=False):
+    from onepose_tpu_torch.tracker import BATracker
+
+    tr = BATracker(win_size=6, pnp_hypotheses=128, ba_iterations=6,
+                   device=device)
+    out = []
+    for i, fr in enumerate(frames):
+        img = fr["image"]
+        if as_uint8 is not None:
+            u8 = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
+            img = u8 if as_uint8 else u8.astype(np.float32) / np.float32(255)
+        if i == 0:
+            assert tr.add_keyframe(img, fr["keypoints"], fr["descriptors"],
+                                   fr["mask"], fr["pose"], K, mkpts3d=pts3d,
+                                   kpt_indices=np.arange(len(pts3d)))
+            continue
+        noise = type(noises[i - 1])(*(type(n)(*(x.to(device) for x in n))
+                                      for n in noises[i - 1]))
+        pose, info = tr.track(img, fr["keypoints"], fr["descriptors"],
+                              fr["mask"], K, noise=noise)
+        assert pose is not None, info
+        out.append((pose, info["step"]))
+    return out
+
+
+def _noises(n):
+    from onepose_tpu_torch.tracker import draw_track_noise
+
+    gen = torch.Generator().manual_seed(0)
+    return [draw_track_noise(64, 64, 128, gen) for _ in range(n)]
+
+
+def test_tracker_on_card_matches_cpu(cuda):
+    """Four frames of the plane, the same injected noise: the same matches
+    and gated assignments, poses within 1e-4 and within 1.5 cm / 1.5 deg
+    of the truth."""
+    from onepose_tpu_torch.utils import geometry as geo
+
+    K, pts3d, frames = _plane()
+    noises = _noises(3)
+    cpu = _run_tracker("cpu", frames, K, pts3d, noises, as_uint8=None)
+    card = _run_tracker(cuda, frames, K, pts3d, noises, as_uint8=None)
+    for i, ((pc, sc), (pg, sg)) in enumerate(zip(cpu, card)):
+        assert torch.equal(sc.m0, sg.m0) and torch.equal(sc.keep, sg.keep)
+        np.testing.assert_allclose(pg, pc, atol=1e-4)
+        r, t = geo.query_pose_error(pg, frames[i + 1]["pose"])
+        assert r < 1.5 and t < 1.5
+
+
+def test_tracker_uint8_bit_identical_on_card(cuda):
+    """uint8 frames, converted on the card, give the same bits as their
+    float32 frames converted on the host (ROADMAP Queue 1 item 10)."""
+    K, pts3d, frames = _plane()
+    noises = _noises(3)
+    u8 = _run_tracker(cuda, frames, K, pts3d, noises, as_uint8=True)
+    f32 = _run_tracker(cuda, frames, K, pts3d, noises, as_uint8=False)
+    for (p8, s8), (p32, s32) in zip(u8, f32):
+        np.testing.assert_array_equal(p8, p32)
+        for a, b in zip(s8, s32):
+            assert torch.equal(a, b)
+
+
+def test_segment_sum_repeats_its_bits_on_card(cuda):
+    """The LM's segment sums (a 0/1 product, no atomics) give the same
+    bits run after run on the card, so a card run can be compared with
+    itself bit for bit; against the CPU they differ in summation order
+    only."""
+    from onepose_tpu_torch.ops import lm
+
+    rng = np.random.default_rng(3)
+    data = torch.from_numpy(rng.normal(size=(4096, 6, 6)).astype(
+        np.float32)).to(cuda)
+    seg = lm.segment_matrix(torch.from_numpy(rng.integers(0, 10, 4096)), 10)
+    runs = [lm.segment_sum(data, seg.to(cuda)) for _ in range(5)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    torch.testing.assert_close(runs[0].cpu(),
+                               lm.segment_sum(data.cpu(), seg),
+                               rtol=0, atol=1e-3)

@@ -160,6 +160,9 @@ def test_path_utils_equal():
                 == jpath.get_gt_pose_path_by_color(p, mode))
     assert (tpath.get_anno_dir("/m/obj", "superpoint", "superglue")
             == jpath.get_anno_dir("/m/obj", "superpoint", "superglue"))
+    assert (tpath.get_intrin_full_path("/d/obj/seq-1")
+            == jpath.get_intrin_full_path("/d/obj/seq-1"))
+    assert tpath.get_3d_box_path("/d/obj") == jpath.get_3d_box_path("/d/obj")
 
 
 def test_prefetch_loader_equal():
@@ -182,6 +185,34 @@ def test_export_scene_html_equal(tmp_path):
     ref = jvis.export_scene_html(str(tmp_path / "j.html"), **kw)
     assert open(got).read() == open(ref).read()
     assert os.path.getsize(got) > 1000
+
+
+def test_demo_rendering_equal(tmp_path):
+    """reproj, draw_3d_box, save_demo_image and make_video: the same
+    pixels, files and video as the originals."""
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.default_rng(8)
+    K = np.array([[200.0, 0, 80], [0, 200.0, 60], [0, 0, 1]])
+    pose = _poses(rng, 1)[0]
+    box = rng.uniform(-0.1, 0.1, (8, 3))
+    np.testing.assert_array_equal(tvis.reproj(K, pose, box),
+                                  jvis.reproj(K, pose, box))
+    assert tvis.BOX_EDGES == jvis.BOX_EDGES
+    img = rng.integers(0, 256, (120, 160), np.uint8)
+    for draw in (True, False):
+        outs = []
+        for name, mod in (("t", tvis), ("j", jvis)):
+            d = tmp_path / f"{name}{int(draw)}"
+            outs.append(mod.save_demo_image(pose, K, img, box, draw,
+                                            str(d / "0.png")))
+            mod.save_demo_image(pose, K, img, box, draw, str(d / "1.png"))
+            mod.make_video(str(d), str(d / "v.mp4"))
+            outs.append(cv2.imread(str(d / "0.png")))
+            outs.append(os.path.getsize(d / "v.mp4"))
+        for a, b in zip(outs[:3], outs[3:]):
+            np.testing.assert_array_equal(a, b)
+    assert tvis.make_video(str(tmp_path / "none"), str(tmp_path / "x.mp4")) \
+        is None
 
 
 @pytest.mark.parametrize("rot,shift,inv", [
