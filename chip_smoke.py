@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``onepose_tpu_torch/csrc`` at
 first use (into ``build/onepose_tpu_torch/``, counted in this run's time)
-and runs ten phases; weights and inputs come from fixed seeds.
+and runs eleven phases; weights and inputs come from fixed seeds.
 
   1. card name and power limit (nvidia-smi);
   2. kernel build time, ptxas register use, and the count of tensor-core
@@ -60,9 +60,26 @@ and runs ten phases; weights and inputs come from fixed seeds.
      0.05 deg / 0.05 cm, sources equal, tracked poses within phase 8's
      0.5 deg / 0.5 cm, every NN flip a near-tie), ms a frame split into
      pipeline and tracking; the stem at [1,512,512,1] and the match at
-     [1,1024,256]x[1,2000,256] against their plain versions.
+     [1,1024,256]x[1,2000,256] against their plain versions;
+ 11. SfM on the card: (a) ``runner.run_sfm`` from images, at full width
+     (60 views of 512x512 along an arc of a ring around a textured
+     plane, known poses; SuperPoint with a budget of 4096 and nms radius
+     3 in batches of 16; SuperGlue at 18 layers, 100 Sinkhorn
+     iterations, threshold 0.7, planted on the views' descriptors; covis
+     10): the stem kernel vs plain at [16,512,512,1] and launched once a
+     batch, the native track builder loaded, the HDF5, model, database
+     and anno files in the JAX layout, ``load_object_db`` reading the
+     port's DB and ``PosePipeline`` posing a frame on it, one pair card
+     vs CPU (keypoints by position, descriptors and scores within 1e-5,
+     SuperGlue under ``superglue.match_gate``), ms a stage, peak memory,
+     the match stage's busy share; (b) the reference scale from features
+     (180 images, 4,000 points, ``utils/synthetic.ring_features``):
+     triangulation within 2 mm median of the truth, postprocess at most
+     2,500 points, global BA (max_obs 65536) lowering its cost and
+     repeating its bits over two runs, peak memory, ms a stage. Their
+     files go to ``build/chip_smoke_sfm/``.
 
-Each main path (phases 7, 8, 9 and 10b) is driven once with the launch
+Each main path (phases 7, 8, 9, 10b and 11a) is driven once with the launch
 counts set to 0 just before it and read just after; the kernels line sums
 those counts. Every phase's launches, comparisons included, are in the JSON.
 Detailed results go to ``DIR/chip_smoke.json`` and ``DIR/profile.txt``
@@ -109,6 +126,11 @@ TRACK_POSE = 1e-4                  # card vs CPU tracked pose, per entry
 # 10b, card vs CPU tracked poses once a step decided differently: twice
 # the largest reading on an H100 (0.063-0.072 deg, 0.017-0.028 cm)
 DEMO_DIVERGED_DEG, DEMO_DIVERGED_CM = 0.15, 0.06
+# phase 11a: images of a ring capture, SfM's extraction batch and budget
+SFM_IMAGES, SFM_BATCH, SFM_KPTS = 60, 16, 4096
+# phase 11's files (about 1 GB), apart from the results directory
+SFM_WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_sfm")
 
 
 def log(*args):
@@ -1183,6 +1205,308 @@ class Smoke:
         self.stem_case((1, H, W, 1), rng)
         self.match_case(1, K_PTS, SHAPE3D, "random")
 
+    # -- 11 ---------------------------------------------------------------
+    def sfm_images(self):
+        """11a: SfM from images, ``runner.run_sfm`` on the card at full
+        width: extraction through the stem kernel in batches of 16,
+        SuperGlue matching, verification, tracks, DLT, the database and
+        postprocess; then the DB it wrote read by ``load_object_db`` and a
+        frame posed on it."""
+        import shutil
+
+        from onepose_tpu_torch.utils import hdf5
+
+        from onepose_tpu_torch import pipeline
+        from onepose_tpu_torch.datasets import anno
+        from onepose_tpu_torch.models import convert, superpoint
+        from onepose_tpu_torch.runtime import native
+        from onepose_tpu_torch.sfm import extract, runner, triangulate
+        from onepose_tpu_torch.sfm.match import names_to_pair
+        from onepose_tpu_torch.utils import colmap_io
+        from onepose_tpu_torch.utils.synthetic import ring_views
+
+        stats = self.results["sfm_images"] = {}
+        rng = np.random.default_rng(12)
+        self.stem_case((SFM_BATCH, H, W, 1), rng)
+        lib = native.load_library()
+        stats["native_library"] = str(lib._name) if lib else None
+        self.check(lib is not None, f"native track builder loaded: {lib}")
+
+        K, poses, images = ring_views(rng, SFM_IMAGES, hw=H,
+                                      focal=float(KMAT[0, 0]))
+        root = os.path.join(SFM_WORK, "capture")
+        names = [os.path.join(root, "seq", "color", f"{i}.png")
+                 for i in range(SFM_IMAGES)]
+        sp_model = convert.superpoint_from_jax(
+            convert.init_superpoint_params(np.random.default_rng(0)))
+        sp_conf = {k: v for k, v in extract.CONFS["superpoint"]["conf"].items()
+                   if k != "descriptor_dim"}
+        # SuperGlue at the reference's depth, planted on the views'
+        # descriptors: matching is their self-similarity
+        det = superpoint.extract(sp_model.to(self.dev), torch.from_numpy(
+            images[:SFM_BATCH, ..., None]).to(self.dev), sp_conf)
+        sg_model = convert.superglue_from_jax(convert.plant_superglue(
+            convert.init_superglue_params(rng), det, 0.0))
+        del det
+        out = os.path.join(SFM_WORK, "images")
+        shutil.rmtree(root, ignore_errors=True)
+        calib = ({n: K for n in names}, dict(zip(names, poses)),
+                 {n: (W, H) for n in names})
+        marks = []
+
+        def mark(stage):
+            torch.cuda.synchronize()
+            marks.append((stage, time.perf_counter()))
+
+        def sfm_path():
+            marks.append(("start", time.perf_counter()))
+            return runner.run_sfm(
+                names, out, sp_model, sg_model, *calib, redo=True,
+                images=dict(zip(names, images)), covis_num=10,
+                device=self.dev, mark=mark)
+
+        torch.cuda.reset_peak_memory_stats()
+        res = self.path_launches("sfm", sfm_path, kernels=("stem",))
+        stats["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        stats["stage_ms"] = {name: (t - t0) * 1e3 for (_, t0), (name, t)
+                             in zip(marks, marks[1:])}
+        stats["result"] = res
+        stem_launches = self.results["launches"]["sfm"]["stem"]
+        want = -(-SFM_IMAGES // SFM_BATCH)
+        self.check(stem_launches == want,
+                   f"sfm: the stem kernel launched {stem_launches} times for "
+                   f"{SFM_IMAGES} images in batches of {SFM_BATCH} "
+                   f"(want {want})")
+
+        lay = runner.sfm_outputs_layout(out, 10)
+        pair_list = [tuple(x.split()) for x in open(
+            lay["covis_pairs_out"]).read().splitlines()]
+        ok = True
+        with hdf5.File(lay["feature_out"], "r") as f:
+            for n in names:
+                g = f[n]
+                kp, de, sc = (g[k][()] for k in ("keypoints", "descriptors",
+                                                 "scores"))
+                ok &= (kp.dtype == np.float32 and kp.shape[1] == 2
+                       and 0 < len(kp) <= SFM_KPTS and de.shape == (256, len(kp))
+                       and sc.shape == (len(kp),)
+                       and list(g["image_size"][()]) == [W, H])
+            stats["keypoints_per_image"] = [len(f[n]["keypoints"])
+                                            for n in names[:SFM_BATCH]]
+        with hdf5.File(lay["matches_out"], "r") as f:
+            groups = sorted(f)
+            a, b = pair_list[0]
+            g = f[names_to_pair(a, b)]
+            ok &= (g["matches0"].dtype == np.int32 and
+                   g["matching_scores0"].shape == g["matches0"].shape)
+            stats["matched_pairs"] = len(groups)
+            stats["matches"] = int(sum((f[k]["matches0"][()] >= 0).sum()
+                                       for k in groups))
+        files = [os.path.join(lay["model_dir"], x) for x in (
+            "cameras.bin", "images.bin", "points3D.bin")] + [
+            os.path.join(lay["empty_dir"], "images.bin"),
+            os.path.join(lay["deep_sfm_dir"], "database.db")] + [
+            os.path.join(lay["anno_dir"], x) for x in (
+                "anno_3d_average.npz", "anno_3d_collect.npz", "idxs.npy",
+                "anno_2d.json")]
+        missing = [x for x in files if not os.path.exists(x)]
+        _, images_m, points3d = colmap_io.read_model(lay["model_dir"])
+        xyz = np.stack([p.xyz for p in points3d.values()])
+        stats["points"] = len(xyz)
+        # the capture is the plane z = 0: random SuperPoint weights keep
+        # most keypoints on fixed pixels, so this records, not gates
+        stats["median_abs_z_mm"] = float(np.median(np.abs(xyz[:, 2]))) * 1e3
+        self.check(ok and not missing and len(images_m) == SFM_IMAGES
+                   and len(xyz) > 0,
+                   f"sfm: HDF5 and model files in the JAX layout ({len(groups)}"
+                   f" matched pairs, {stats['matches']} matches, {len(xyz)} "
+                   f"points, median |z| {stats['median_abs_z_mm']:.1f} mm); "
+                   f"missing {missing}")
+
+        # the DB the port wrote, read and posed on
+        db = anno.load_object_db(*(os.path.join(lay["anno_dir"], x) for x in (
+            "anno_3d_average.npz", "anno_3d_collect.npz", "idxs.npy")),
+            num_leaf=LEAF)
+        gats_model = convert.gats_spg_from_jax(convert.init_gats_spg_params(
+            rng))
+        pipe = pipeline.PosePipeline(
+            sp_model, gats_model, db, sp_config={**sp_conf,
+                                                 "max_keypoints": K_PTS},
+            gats_config={"match_threshold": 0.0}, num_hypotheses=HYP,
+            device=self.dev)
+        pose_out = pipe(images[:1, ..., None], K[None].astype(np.float32),
+                        generator=torch.Generator(self.dev).manual_seed(3))
+        stats["db_points"] = int(db.num_points)
+        stats["frame_on_db"] = {"inliers": int(pose_out.num_inliers[0]),
+                                "success": bool(pose_out.success[0])}
+        self.check(db.num_points == res["num_points"] > 0 and bool(
+            torch.isfinite(pose_out.poses).all()),
+            f"sfm: load_object_db read the port's anno files "
+            f"({db.num_points} points) and PosePipeline posed a frame on "
+            f"them: {stats['frame_on_db']}")
+
+        # tracks and the DLT timed apart, on the run's verified matches
+        ver = triangulate.verify_matches(lay["feature_out"], lay["matches_out"],
+                                         pair_list, *calib[:2], device=self.dev)
+        t0 = time.perf_counter()
+        tracks = triangulate.build_tracks(
+            {n: len(ver[0][n]) for n in names}, ver[1])
+        t1 = time.perf_counter()
+        triangulate.triangulate_tracks(tracks, ver[0], *calib[:2],
+                                       device=self.dev)
+        torch.cuda.synchronize()
+        stats["stage_ms"]["tracks"] = (t1 - t0) * 1e3
+        stats["stage_ms"]["dlt"] = (time.perf_counter() - t1) * 1e3
+        stats["tracks"] = len(tracks)
+
+        # the match stage's busy share, over its first 16 pairs
+        from onepose_tpu_torch.sfm import match
+
+        stats["match_profile"], table = device_profile(
+            lambda: match.match_pairs_to_h5(
+                sg_model, pair_list[:16], lay["feature_out"],
+                os.path.join(out, "profiled_matches.h5"), device=self.dev))
+        with open(os.path.join(self.out_dir, "profile.txt"), "a") as f:
+            f.write(f"\n== sfm match: {stats['match_profile']}\n{table}")
+        log("   sfm ms: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                      stats["stage_ms"].items())
+            + f"; peak {stats['peak_gb']:.2f} GiB; match busy share "
+            f"{stats['match_profile']['busy_share']:.3f}  [{self.smi}]")
+
+        self.sfm_card_vs_cpu(sp_model, sg_model, names, images, pair_list[0],
+                             out)
+
+    def sfm_card_vs_cpu(self, sp_model, sg_model, names, images, pair, out):
+        """11a's card-vs-CPU check on one pair: extract_to_h5 on both
+        devices (keypoints by position, descriptors and scores at the same
+        positions within 1e-5), then each side's SuperGlue on its own
+        features under ``superglue.match_gate``."""
+        from onepose_tpu_torch.utils import hdf5
+
+        from onepose_tpu_torch.models import superglue
+        from onepose_tpu_torch.sfm import extract, match
+
+        stats = self.results["sfm_images"]["card_vs_cpu"] = {}
+        idx = [names.index(n) for n in pair]
+        imgs = {n: images[i] for n, i in zip(pair, idx)}
+        sides = {}
+        for side, dev in (("card", self.dev), ("cpu", torch.device("cpu"))):
+            path = os.path.join(out, f"pair_feats_{side}.h5")
+            extract.extract_to_h5(copy.deepcopy(sp_model), list(pair), path,
+                                  images=imgs, device=dev)
+            with hdf5.File(path, "r") as f:
+                feats = {n: {k: f[n][k][()] for k in f[n]} for n in pair}
+            data = {}
+            for i, n in zip("01", pair):
+                fe = feats[n]
+                kp, sc, de, m = match._pad_feats(
+                    fe["keypoints"], fe["scores"], fe["descriptors"].T,
+                    match._bucket(len(fe["keypoints"])))
+                data.update({f"keypoints{i}": kp, f"scores{i}": sc,
+                             f"descriptors{i}": de, f"mask{i}": m})
+            data = {k: torch.from_numpy(v[None]).to(dev)
+                    for k, v in data.items()}
+            data["shape0"] = data["shape1"] = (H, W)
+            cfg = superglue.resolve_config(match.CONF)
+            model = copy.deepcopy(sg_model).to(dev)
+            Z = superglue.log_assignment(model, data, cfg)
+            m0 = superglue.mutual_matches(Z, cfg["match_threshold"],
+                                          data["mask0"], data["mask1"])
+            sides[side] = (feats, m0.matches0.cpu(), Z.cpu(),
+                           (data["keypoints0"].cpu(), data["keypoints1"].cpu()))
+        (c_feats, c_m0, c_Z, c_kp), (h_feats, h_m0, h_Z, h_kp) = (
+            sides["card"], sides["cpu"])
+        same, d_err, s_err = True, 0.0, 0.0
+        for n in pair:
+            c, h = c_feats[n], h_feats[n]
+            co = np.lexsort((c["keypoints"][:, 0], c["keypoints"][:, 1]))
+            ho = np.lexsort((h["keypoints"][:, 0], h["keypoints"][:, 1]))
+            same &= np.array_equal(c["keypoints"][co], h["keypoints"][ho])
+            if same:
+                d_err = max(d_err, float(np.abs(c["descriptors"][:, co]
+                                                - h["descriptors"][:, ho]).max()))
+                s_err = max(s_err, float(np.abs(c["scores"][co]
+                                                - h["scores"][ho]).max()))
+        gate = superglue.match_gate(c_m0, c_Z, h_m0, h_Z,
+                                    match.CONF["match_threshold"], c_kp, h_kp)
+        stats.update({"same_keypoint_positions": bool(same),
+                      "descriptor_err": d_err, "score_err": s_err,
+                      "gate": dataclasses.asdict(gate),
+                      "matches": int((h_m0 >= 0).sum())})
+        self.check(same and d_err < 1e-5 and s_err < 1e-5 and gate.ok,
+                   f"sfm: card vs CPU on one pair: keypoints at the same "
+                   f"positions {same}, descriptors within {d_err:.2e}, scores "
+                   f"within {s_err:.2e} (1e-5); log assignments "
+                   f"{gate.max_rel_diff:.2e} of their scale apart (gate "
+                   f"{superglue.GATE_REL:.0e}), matches0 differ at {gate.diff} "
+                   f"of {stats['matches']} matched rows, outside near-ties "
+                   f"{gate.bad}")
+
+    def sfm_features(self):
+        """11b: SfM at the reference's scale from features (180 images,
+        4,000 points, keypoints within the 4096 budget, covis-10 pairs):
+        triangulation, postprocess and global BA (max_obs 65536) on the
+        card."""
+        import shutil
+
+        from onepose_tpu_torch.sfm import global_ba, postprocess, triangulate
+        from onepose_tpu_torch.utils import colmap_io
+        from onepose_tpu_torch.utils.synthetic import ring_features
+
+        stats = self.results["sfm_features"] = {}
+        out = os.path.join(SFM_WORK, "features")
+        shutil.rmtree(out, ignore_errors=True)
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        w = ring_features(out, np.random.default_rng(11))
+        ms = {"features": (time.perf_counter() - t0) * 1e3}
+        model_dir = os.path.join(out, "sfm_ws", "model")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tri = triangulate.triangulate_from_h5(
+            w["feature_path"], w["match_path"], w["pair_list"], w["Ks"],
+            w["poses"], w["sizes"], model_dir, verbose=False, device=self.dev)
+        ms["triangulate"] = (time.perf_counter() - t0) * 1e3
+        stats["triangulate_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                        / 2 ** 30)
+        _, _, points3d = colmap_io.read_model(model_dir)
+        xyz = np.stack([p.xyz for p in points3d.values()])
+        d = np.sqrt(((xyz[:, None] - w["pts3d"][None]) ** 2).sum(-1)).min(1)
+        stats["median_err_mm"] = float(np.median(d)) * 1e3
+        t0 = time.perf_counter()
+        pp = postprocess.postprocess(model_dir, w["feature_path"], w["names"],
+                                     os.path.join(out, "anno"),
+                                     max_num_points=2500)
+        ms["postprocess"] = (time.perf_counter() - t0) * 1e3
+        self.check(stats["median_err_mm"] < 2.0 and pp["num_points"] <= 2500
+                   and tri["num_sparse_points"] >= 2500,
+                   f"sfm features: {tri['num_sparse_points']} points, median "
+                   f"{stats['median_err_mm']:.3f} mm from the truth (2 mm); "
+                   f"postprocess kept {pp['num_points']} (<= 2500)")
+
+        runs = []
+        for i in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            ba = global_ba.run_bundle_adjuster(
+                model_dir, os.path.join(out, f"ba{i}"), device=self.dev)
+            ms[f"bundle_adjust_{i}"] = (time.perf_counter() - t0) * 1e3
+            stats[f"ba_peak_gb_{i}"] = (torch.cuda.max_memory_allocated()
+                                        / 2 ** 30)
+            runs.append((ba, [open(os.path.join(out, f"ba{i}", x), "rb").read()
+                              for x in ("images.bin", "points3D.bin")]))
+        (ba, bits0), (ba1, bits1) = runs
+        stats["ba"] = ba
+        stats["stage_ms"] = ms
+        self.check(ba["final_cost"] < ba["initial_cost"] and bits0 == bits1
+                   and ba == ba1 and stats["ba_peak_gb_0"] < 4.0,
+                   f"sfm features: BA cost {ba['initial_cost']:.1f} -> "
+                   f"{ba['final_cost']:.1f}, the same bits over two runs "
+                   f"{bits0 == bits1}, peak {stats['ba_peak_gb_0']:.2f} GiB "
+                   f"(< 4)")
+        log("   sfm features ms: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                               ms.items()) + f"  [{self.smi}]")
+
     def kernels_line(self):
         st = self.results.get("stem", {}).get(str((B, H, W, 1)), {})
         mt = self.results.get("match", {}).get(
@@ -1469,6 +1793,9 @@ def main() -> int:
     smoke.phase("9 feature-matching detector", smoke.detector)
     smoke.phase("10a keyframe BA tracker", smoke.tracking)
     smoke.phase("10b tracked demo path", smoke.demo)
+    smoke.phase("11a SfM from images", smoke.sfm_images)
+    smoke.phase("11b SfM at the reference scale from features",
+                smoke.sfm_features)
     smoke.check("jax" not in sys.modules, "no JAX imported")
 
     smoke.results["failures"] = smoke.failures

@@ -20,6 +20,7 @@ from __future__ import annotations
 import glob
 import os.path as osp
 import sys
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
@@ -33,7 +34,12 @@ def _read_list(path):
 
 
 def inference_core(cfg, data_root, seq_dir, sfm_model_dir, sp_model,
-                   gats_model):
+                   gats_model, noises: Optional[Iterable] = None):
+    """Every frame of ``seq_dir`` through ``PosePipeline`` in batches of
+    ``cfg.batch_size``, evaluated against the ground truth → cmd1/3/5.
+    ``noises``, when given, holds each batch's injected RANSAC noise
+    (``epnp.RansacNoise``); else RANSAC draws from a generator seeded
+    12345."""
     from onepose_tpu_torch import pipeline
     from onepose_tpu_torch.datasets import anno
     from onepose_tpu_torch.evaluators import Evaluator, record_eval_result
@@ -74,6 +80,7 @@ def inference_core(cfg, data_root, seq_dir, sfm_model_dir, sp_model,
     evaluator = Evaluator()
     bs = cfg.batch_size
     generator = torch.Generator(device=device).manual_seed(12345)
+    noises = iter(noises) if noises is not None else None
     scene_poses = [] if cfg.get("save_wis3d", False) else None
     loader = PrefetchLoader(img_lists, lambda p: load_gray(p)[..., None],
                             batch_size=bs, depth=2)
@@ -100,7 +107,8 @@ def inference_core(cfg, data_root, seq_dir, sfm_model_dir, sp_model,
         while len(Ks) < bs:
             Ks.append(Ks[-1])
         out = pipe(images, np.stack(Ks).astype(np.float32),
-                   generator=generator)
+                   generator=generator,
+                   noise=next(noises) if noises is not None else None)
         pending.append((out, gt_poses, n_real))
         if len(pending) > MAX_IN_FLIGHT:
             drain(pending.pop(0))

@@ -10,13 +10,21 @@ with gain-ratio damping, the step chosen on the device (no host sync).
 extrinsics-only BA.
 
 Translations from the JAX version:
-- ``segment_sum`` → :func:`segment_sum`, a product with a 0/1 segment
-  matrix [n, O] built once a solve. ``index_add_`` and ``index_put_``
-  with ``accumulate`` add with atomics (``index_add_`` on a card,
-  ``index_put_`` on the CPU), so their bits change from run to run; the
-  product's do not, so a run can be held bit for bit against another on
-  the same device. Its summation order is not the CPU's, so card vs CPU
-  is a tolerance;
+- ``segment_sum`` → :func:`segment_sum`: the observations are sorted
+  by segment once a solve (a stable sort, :func:`segment_matrix`), and
+  each solve's sums gather the rows in that order and reduce each
+  segment's run with ``torch.segment_reduce``, whose kernels add a
+  segment's rows in a fixed order, in fp64, rounded to fp32 once (a
+  sequential fp32 sum over a camera's thousands of observations would
+  round more than the blocked sums of a matrix product). Time and memory
+  are linear in the observations. ``index_add_`` and ``index_put_`` with ``accumulate`` add
+  with atomics (``index_add_`` on a card, ``index_put_`` on the CPU), so
+  their bits change from run to run; these sums' do not, so a run can be
+  held bit for bit against another on the same device. The card's
+  summation order is not the CPU's, so card vs CPU is a tolerance;
+- the Schur complement's per-point camera blocks ``Wp`` [P, C*6, 3] are
+  one such sum keyed by ``point * C + camera``, not a dense scatter of
+  every observation over every camera;
 - ``lax.scan`` → a Python loop over ``iterations``;
 - ``jnp.linalg.inv`` of the [P, 3, 3] blocks → ``torch.linalg.inv_ex``
   (LU, as JAX's; no error check, so no sync);
@@ -32,7 +40,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from onepose_tpu_torch.ops import lie
 
@@ -58,17 +65,34 @@ class BAResult(NamedTuple):
     final_cost: torch.Tensor
 
 
-def segment_matrix(ids: torch.Tensor, n: int) -> torch.Tensor:
-    """[n, O] float 0/1 matrix: entry (s, o) is 1 where ``ids[o] == s``."""
-    return F.one_hot(ids.long(), n).T.float()
+class Segments(NamedTuple):
+    """The sparse form of the 0/1 segment matrix [n, O] whose entry
+    (s, o) is 1 where ``ids[o] == s``: ``order`` [O] the observations
+    sorted by segment (stable, so each segment keeps its observations in
+    their order) and ``lengths`` [n] the size of each segment."""
+
+    order: torch.Tensor
+    lengths: torch.Tensor
+
+    def to(self, device) -> "Segments":
+        return Segments(self.order.to(device), self.lengths.to(device))
 
 
-def segment_sum(data: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
-    """Sums of the rows of ``data`` [O, ...] by segment → [n, ...], for
-    ``seg`` = :func:`segment_matrix` [n, O]. Products with 0 and 1 are
-    exact, so this is a sum of each segment's rows, in a fixed order."""
-    return (seg @ data.reshape(data.shape[0], -1)).reshape(
-        seg.shape[0], *data.shape[1:])
+def segment_matrix(ids: torch.Tensor, n: int) -> Segments:
+    """The observations ``ids`` [O] (each in [0, n)) grouped by segment."""
+    ids = ids.long()
+    return Segments(torch.sort(ids, stable=True).indices,
+                    torch.bincount(ids, minlength=n))
+
+
+def segment_sum(data: torch.Tensor, seg: Segments) -> torch.Tensor:
+    """Sums of the rows of ``data`` [O, ...] by segment → [n, ...], each
+    segment's rows added in a fixed order in fp64 and rounded once
+    (empty segments are 0)."""
+    rows = data.reshape(data.shape[0], -1)[seg.order].double()
+    out = torch.segment_reduce(rows, "sum", lengths=seg.lengths, axis=0,
+                               unsafe=True)
+    return out.to(data.dtype).reshape(seg.lengths.shape[0], *data.shape[1:])
 
 
 def _cam_point(cameras, points, cam_idx, pt_idx):
@@ -132,14 +156,6 @@ def _precond_solve(A: torch.Tensor, b: torch.Tensor):
     return y[:, 0] * d, info == 0
 
 
-def _scatter_cam_blocks(W: torch.Tensor, cam_idx: torch.Tensor, C: int):
-    """[O, 6, 3] → [O, C*6, 3] with each observation's block at its
-    camera's slot."""
-    onehot = F.one_hot(cam_idx, C).to(W.dtype)              # [O, C]
-    return (onehot[:, :, None, None] * W[:, None]).reshape(
-        W.shape[0], C * 6, 3)
-
-
 def _to_dense_cams(Hcc: torch.Tensor, lam_eye6: torch.Tensor):
     """[C, 6, 6] block-diagonal → dense [C*6, C*6] with damping."""
     H = Hcc + lam_eye6[None] + 1e-8 * torch.eye(
@@ -177,6 +193,9 @@ def solve_ba(problem: BAProblem, iterations: int = 10,
     eye6 = torch.eye(6, device=dev)
     seg_cam = segment_matrix(cam_idx, C)
     seg_pt = None if fix_points else segment_matrix(pt_idx, P)
+    # each point's blocks, camera by camera: the segment of (point, camera)
+    seg_pt_cam = (None if fix_points or fix_cameras
+                  else segment_matrix(pt_idx * C + cam_idx, P * C))
 
     def cost(cams, pts):
         r = residuals(cams, pts, cam_idx, pt_idx, uv, K, mask)
@@ -219,7 +238,7 @@ def solve_ba(problem: BAProblem, iterations: int = 10,
 
         # Schur complement on the cameras, with each point's camera blocks
         # laid out densely: Wp [P, C*6, 3]
-        Wp = segment_sum(_scatter_cam_blocks(Jct @ Jp, cam_idx, C), seg_pt)
+        Wp = segment_sum(Jct @ Jp, seg_pt_cam).reshape(P, C * 6, 3)
         WpHi = Wp @ Hpp_inv                                 # [P, C6, 3]
         S = _to_dense_cams(Hcc, lam_eye6) - torch.einsum(
             "pax,pbx->ab", WpHi, Wp)

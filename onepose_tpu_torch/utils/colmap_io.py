@@ -1,9 +1,9 @@
-"""COLMAP binary model reader (cameras.bin / images.bin / points3D.bin).
+"""COLMAP binary model IO (cameras.bin / images.bin / points3D.bin).
 
-The port's own copy of the readers of ``onepose_tpu/utils/colmap_io.py``,
-which implements the public COLMAP binary format. The port only reads SfM
-models (the detector samples its reference views from one); writing them
-belongs to the SfM slice.
+The port's own copy of the readers and writers of
+``onepose_tpu/utils/colmap_io.py``, which implements the public COLMAP
+binary format: the detector samples its reference views from a model, and
+SfM writes one (and an ASCII PLY of its points).
 
 Format (little-endian):
 - cameras.bin:  u64 n; per camera: i32 camera_id, i32 model_id, u64 width,
@@ -37,6 +37,7 @@ CAMERA_MODELS = {
     9: ("RADIAL_FISHEYE", 5),
     10: ("THIN_PRISM_FISHEYE", 12),
 }
+CAMERA_MODEL_IDS = {name: mid for mid, (name, _) in CAMERA_MODELS.items()}
 
 
 @dataclass
@@ -144,3 +145,80 @@ def read_model(model_dir: str):
     return (read_cameras_binary(osp.join(model_dir, "cameras.bin")),
             read_images_binary(osp.join(model_dir, "images.bin")),
             read_points3d_binary(osp.join(model_dir, "points3D.bin")))
+
+
+# ---------------------------------------------------------------------------
+# Writers
+# ---------------------------------------------------------------------------
+
+def write_cameras_binary(cameras: Dict[int, Camera], path: str):
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(cameras)))
+        for cam in cameras.values():
+            model_id = CAMERA_MODEL_IDS[cam.model]
+            f.write(struct.pack("<iiQQ", cam.id, model_id,
+                                cam.width, cam.height))
+            f.write(struct.pack("<" + "d" * len(cam.params),
+                                *np.asarray(cam.params, np.float64)))
+
+
+def write_images_binary(images: Dict[int, Image], path: str):
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(images)))
+        for im in images.values():
+            f.write(struct.pack("<i", im.id))
+            f.write(struct.pack("<dddd", *np.asarray(im.qvec, np.float64)))
+            f.write(struct.pack("<ddd", *np.asarray(im.tvec, np.float64)))
+            f.write(struct.pack("<i", im.camera_id))
+            f.write(im.name.encode("utf-8") + b"\x00")
+            n_pts = len(im.xys)
+            f.write(struct.pack("<Q", n_pts))
+            if n_pts:
+                rec = np.empty(
+                    n_pts, dtype=np.dtype([("x", "<f8"), ("y", "<f8"),
+                                           ("id", "<i8")]))
+                rec["x"] = im.xys[:, 0]
+                rec["y"] = im.xys[:, 1]
+                rec["id"] = im.point3D_ids
+                f.write(rec.tobytes())
+
+
+def write_points3d_binary(points: Dict[int, Point3D], path: str):
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(points)))
+        for pt in points.values():
+            f.write(struct.pack("<q", pt.id))
+            f.write(struct.pack("<ddd", *np.asarray(pt.xyz, np.float64)))
+            f.write(struct.pack("<BBB", *np.asarray(pt.rgb, np.uint8)))
+            f.write(struct.pack("<d", float(pt.error)))
+            track_len = len(pt.image_ids)
+            f.write(struct.pack("<Q", track_len))
+            rec = np.empty(
+                track_len, dtype=np.dtype([("image_id", "<i4"),
+                                           ("pt2d", "<i4")]))
+            rec["image_id"] = pt.image_ids
+            rec["pt2d"] = pt.point2D_idxs
+            f.write(rec.tobytes())
+
+
+def write_model(cameras, images, points3D, model_dir: str):
+    import os
+
+    os.makedirs(model_dir, exist_ok=True)
+    write_cameras_binary(cameras, osp.join(model_dir, "cameras.bin"))
+    write_images_binary(images, osp.join(model_dir, "images.bin"))
+    write_points3d_binary(points3D, osp.join(model_dir, "points3D.bin"))
+
+
+def write_points_ply(points: Dict[int, Point3D], path: str):
+    """ASCII PLY export (replaces `colmap model_converter --output_type PLY`)."""
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write(f"element vertex {len(points)}\n")
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        f.write("property uchar red\nproperty uchar green\n"
+                "property uchar blue\nend_header\n")
+        for pt in points.values():
+            x, y, z = pt.xyz
+            r, g, b = pt.rgb
+            f.write(f"{x} {y} {z} {int(r)} {int(g)} {int(b)}\n")

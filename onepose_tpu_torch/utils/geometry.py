@@ -1,5 +1,6 @@
 """Host-side (numpy) geometry for the port: intrinsics-consistent crop and
-resize, intrinsics file IO, rotations, projection and the pose-error
+resize, intrinsics file IO, rotations and quaternions, projection and
+the pose-error
 metrics of the cmd1/3/5 protocol.
 
 The port's own copy of the functions of ``onepose_tpu/utils/geometry.py``
@@ -117,6 +118,33 @@ def get_K(intrin_file: str):
 # ---------------------------------------------------------------------------
 # Rotations, pose errors, projection
 # ---------------------------------------------------------------------------
+
+def qvec2rotmat(qvec) -> np.ndarray:
+    """Quaternion (w, x, y, z) → 3x3 rotation matrix."""
+    w, x, y, z = np.asarray(qvec, dtype=np.float64)
+    return np.array([
+        [1 - 2 * y * y - 2 * z * z, 2 * x * y - 2 * z * w, 2 * x * z + 2 * y * w],
+        [2 * x * y + 2 * z * w, 1 - 2 * x * x - 2 * z * z, 2 * y * z - 2 * x * w],
+        [2 * x * z - 2 * y * w, 2 * y * z + 2 * x * w, 1 - 2 * x * x - 2 * y * y],
+    ])
+
+
+def rotmat2qvec(R) -> np.ndarray:
+    """3x3 rotation matrix → quaternion (w, x, y, z), w >= 0."""
+    R = np.asarray(R, dtype=np.float64)
+    Rxx, Ryx, Rzx, Rxy, Ryy, Rzy, Rxz, Ryz, Rzz = R.flat
+    K = np.array([
+        [Rxx - Ryy - Rzz, 0, 0, 0],
+        [Ryx + Rxy, Ryy - Rxx - Rzz, 0, 0],
+        [Rzx + Rxz, Rzy + Ryz, Rzz - Rxx - Ryy, 0],
+        [Ryz - Rzy, Rzx - Rxz, Rxy - Ryx, Rxx + Ryy + Rzz],
+    ]) / 3.0
+    eigvals, eigvecs = np.linalg.eigh(K)
+    qvec = eigvecs[[3, 0, 1, 2], np.argmax(eigvals)]
+    if qvec[0] < 0:
+        qvec *= -1
+    return qvec
+
 
 def rodrigues(rvec) -> np.ndarray:
     """Axis-angle vector → 3x3 rotation matrix."""

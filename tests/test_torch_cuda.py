@@ -19,7 +19,10 @@ assignment within superglue.GATE_REL = 5e-5 of the CPU's scale and
 matches0 equal except in the near-ties that difference explains
 (``superglue.match_gate``); the tracker's LK points within 1e-3 px of the
 CPU's with equal status, its matches and assignments equal and its poses
-within 1e-4 of the CPU's, uint8 frames bit-identical to float32 ones."""
+within 1e-4 of the CPU's, uint8 frames bit-identical to float32 ones;
+SfM's DLT null vectors within 1e-4 of the CPU's up to sign (over more
+systems than one eigh call takes), and extract_to_h5's features at the
+same keypoint positions, descriptors and scores within 1e-5."""
 import copy
 
 import numpy as np
@@ -405,10 +408,10 @@ def test_tracker_uint8_bit_identical_on_card(cuda):
 
 
 def test_segment_sum_repeats_its_bits_on_card(cuda):
-    """The LM's segment sums (a 0/1 product, no atomics) give the same
-    bits run after run on the card, so a card run can be compared with
-    itself bit for bit; against the CPU they differ in summation order
-    only."""
+    """The LM's segment sums (rows sorted by segment, each segment added
+    in a fixed order in fp64, no atomics) give the same bits run after
+    run on the card, so a card run can be compared with itself bit for
+    bit; against the CPU they differ in summation order only."""
     from onepose_tpu_torch.ops import lm
 
     rng = np.random.default_rng(3)
@@ -420,3 +423,50 @@ def test_segment_sum_repeats_its_bits_on_card(cuda):
     torch.testing.assert_close(runs[0].cpu(),
                                lm.segment_sum(data.cpu(), seg),
                                rtol=0, atol=1e-3)
+
+
+def test_dlt_null_vectors_on_card_match_cpu(cuda):
+    """Systems Q diag(0, 1, 2, 3) Q^T with random rotations Q, more of
+    them than one eigh call takes: on the card and on the CPU the null
+    vector is Q's first column, up to sign, within 1e-4."""
+    from onepose_tpu_torch.sfm import triangulate
+
+    rng = np.random.default_rng(4)
+    n = 3 * triangulate.EIGH_BATCH + 5
+    Q = np.linalg.qr(rng.normal(size=(n, 4, 4)))[0]
+    AtA = torch.from_numpy((Q * np.arange(4.0)[None, None]) @ Q.transpose(
+        0, 2, 1)).float()
+    truth = torch.from_numpy(Q[:, :, 0]).float()
+    for got in (triangulate.null_vectors(AtA.to(cuda)).cpu(),
+                triangulate.null_vectors(AtA)):
+        sign = torch.sign((got * truth).sum(-1, keepdim=True))
+        torch.testing.assert_close(got * sign, truth, rtol=0, atol=1e-4)
+
+
+def test_extract_to_h5_on_card_matches_cpu(cuda, tmp_path):
+    from onepose_tpu_torch.models import convert
+    from onepose_tpu_torch.sfm import extract
+    from onepose_tpu_torch.utils import hdf5
+
+    rng = np.random.default_rng(5)
+    model = convert.superpoint_from_jax(convert.init_superpoint_params(rng))
+    names = [f"/v/{i}.png" for i in range(3)]
+    images = {n: rng.uniform(0, 1, (128, 160)).astype(np.float32)
+              for n in names}
+    feats = []
+    for dev in (cuda, torch.device("cpu")):
+        path = str(tmp_path / f"{dev.type}.h5")
+        extract.extract_to_h5(copy.deepcopy(model), names, path,
+                              batch_size=2, images=images, device=dev)
+        with hdf5.File(path) as f:
+            feats.append({n: {k: f[n][k][()] for k in f[n]} for n in names})
+    for n in names:
+        c, h = feats[0][n], feats[1][n]
+        co = np.lexsort((c["keypoints"][:, 0], c["keypoints"][:, 1]))
+        ho = np.lexsort((h["keypoints"][:, 0], h["keypoints"][:, 1]))
+        np.testing.assert_array_equal(c["keypoints"][co], h["keypoints"][ho])
+        np.testing.assert_allclose(c["descriptors"][:, co],
+                                   h["descriptors"][:, ho], atol=1e-5)
+        np.testing.assert_allclose(c["scores"][co], h["scores"][ho],
+                                   atol=1e-5)
+        np.testing.assert_array_equal(c["image_size"], [160, 128])

@@ -4,8 +4,10 @@ counterparts, on the CPU.
 Each copy is numpy and stdlib code; on seeded numpy inputs it must give
 exactly what the original gives (arrays equal, the same file text, the
 same config dict), except the float geometry, held to 1e-12."""
+import json
 import os
 import os.path as osp
+import sqlite3
 
 import numpy as np
 import pytest
@@ -13,6 +15,10 @@ import pytest
 from onepose_tpu import config as jconfig
 from onepose_tpu import evaluators as jeval
 from onepose_tpu.datasets import anno as janno
+from onepose_tpu.datasets import merge as jmerge
+from onepose_tpu.runtime import native as jnative
+from onepose_tpu.sfm import pairs as jpairs, postprocess as jpost
+from onepose_tpu.utils import colmap_db as jdb
 from onepose_tpu.runtime import loader as jloader
 from onepose_tpu.sfm import extract as jextract
 from onepose_tpu.utils import colmap_io as jcolmap
@@ -22,6 +28,10 @@ from onepose_tpu.utils import vis_utils as jvis
 from onepose_tpu_torch import config as tconfig
 from onepose_tpu_torch import evaluators as teval
 from onepose_tpu_torch.datasets import anno as tanno
+from onepose_tpu_torch.datasets import merge as tmerge
+from onepose_tpu_torch.runtime import native as tnative
+from onepose_tpu_torch.sfm import pairs as tpairs, postprocess as tpost
+from onepose_tpu_torch.utils import colmap_db as tdb
 from onepose_tpu_torch.runtime import loader as tloader
 from onepose_tpu_torch.sfm import extract as textract
 from onepose_tpu_torch.utils import colmap_io as tcolmap
@@ -305,3 +315,247 @@ def test_sample_ref_views_equal(tmp_path):
     for n in (1, 3, 15):
         args = (str(tmp_path / "obj"), "superpoint", "superglue", n)
         assert tfm.sample_ref_views(*args) == jfm.sample_ref_views(*args)
+
+
+# ---------------------------------------------------------------------------
+# The SfM slice's copies
+# ---------------------------------------------------------------------------
+
+def test_quaternions_equal():
+    rng = np.random.default_rng(9)
+    for rvec in [*rng.normal(size=(20, 3)) * 2, np.zeros(3),
+                 np.array([np.pi, 0, 0])]:
+        R = jgeo.rodrigues(rvec)
+        np.testing.assert_array_equal(tgeo.rotmat2qvec(R),
+                                      jgeo.rotmat2qvec(R))
+        q = jgeo.rotmat2qvec(R)
+        np.testing.assert_array_equal(tgeo.qvec2rotmat(q),
+                                      jgeo.qvec2rotmat(q))
+
+
+def _random_model(rng):
+    cams = {i: jcolmap.Camera(i, m, 640, 480, rng.normal(size=n))
+            for i, (m, n) in enumerate([("PINHOLE", 4), ("OPENCV", 8),
+                                        ("SIMPLE_PINHOLE", 3)], start=1)}
+    images = {}
+    for i in (3, 1, 2, 5):
+        n = int(rng.integers(0, 20))
+        images[i] = jcolmap.Image(
+            i, rng.normal(size=4), rng.normal(size=3), 1 + i % 3,
+            f"seq-{i}/color/{i * 7}.png", rng.uniform(0, 640, (n, 2)),
+            rng.integers(-1, 50, n).astype(np.int64))
+    points = {}
+    for pid in range(1, 30):
+        t = int(rng.integers(1, 6))
+        points[pid] = jcolmap.Point3D(
+            pid, rng.normal(size=3), rng.integers(0, 256, 3).astype(np.uint8),
+            float(rng.uniform(0, 2)), rng.integers(1, 6, t).astype(np.int32),
+            rng.integers(0, 20, t).astype(np.int32))
+    return cams, images, points
+
+
+def test_colmap_writers_equal(tmp_path):
+    """Both packages' writers write the same bytes, and the JAX readers
+    read the port's model back as written."""
+    cams, images, points = _random_model(np.random.default_rng(10))
+    for name, mod in (("j", jcolmap), ("t", tcolmap)):
+        mod.write_model(cams, images, points, str(tmp_path / name))
+        mod.write_points_ply(points, str(tmp_path / name / "model.ply"))
+    for f in ("cameras.bin", "images.bin", "points3D.bin", "model.ply"):
+        assert ((tmp_path / "t" / f).read_bytes()
+                == (tmp_path / "j" / f).read_bytes()), f
+    assert tcolmap.CAMERA_MODEL_IDS == jcolmap.CAMERA_MODEL_IDS
+    back = jcolmap.read_model(str(tmp_path / "t"))
+    assert back[0].keys() == cams.keys() and back[2].keys() == points.keys()
+    np.testing.assert_array_equal(back[1][5].xys, images[5].xys)
+
+
+@pytest.mark.parametrize("with_library", [True, False])
+def test_union_find_equal(monkeypatch, with_library):
+    """The port's track builder, its C++ library and its Python union-find,
+    against the JAX package's."""
+    rng = np.random.default_rng(11)
+    n = 300
+    edges = rng.integers(0, n, (500, 2))
+    node_img = rng.integers(0, 12, n).astype(np.int32)
+    ref = (jnative.uf_components(n, edges),
+           jnative.uf_components_imgsafe(n, edges, node_img))
+    if with_library:
+        assert tnative.load_library() is not None
+        assert tnative.BUILD_DIR.endswith(osp.join("build",
+                                                   "onepose_tpu_torch"))
+    else:
+        monkeypatch.setattr(tnative, "load_library", lambda: None)
+    got = (tnative.uf_components(n, edges),
+           tnative.uf_components_imgsafe(n, edges, node_img))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+    assert len(np.unique(ref[1])) > len(np.unique(ref[0]))
+
+
+def _ring_poses(n):
+    Rs, ts = [], []
+    for i in range(n):
+        th = 2 * np.pi * i / n
+        c = np.array([0.6 * np.cos(th), 0.6 * np.sin(th), 0.3])
+        z = -c / np.linalg.norm(c)
+        x = np.cross(z, [0.0, 0.0, 1.0])
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])
+        Rs.append(R)
+        ts.append(-R @ c)
+    return np.stack(Rs), np.stack(ts)
+
+
+@pytest.mark.parametrize("n,num_matched,seqs", [(14, 4, 1), (40, 10, 2),
+                                                 (9, 10, 1)])
+def test_covis_pairs_equal(tmp_path, n, num_matched, seqs):
+    names = [f"/d/seq{i % seqs}/color/{i}.png" for i in range(n)]
+    kw = dict(num_matched=num_matched, poses=_ring_poses(n))
+    got = tpairs.covis_pairs(names, **kw)
+    assert got == jpairs.covis_pairs(names, **kw) and got
+    tpairs.write_pairs(got, str(tmp_path / "t.txt"))
+    jpairs.write_pairs(got, str(tmp_path / "j.txt"))
+    assert (tmp_path / "t.txt").read_text() == (tmp_path / "j.txt").read_text()
+    assert tpairs.read_pairs(str(tmp_path / "j.txt")) == got
+
+
+def test_postprocess_pieces_equal():
+    rng = np.random.default_rng(12)
+    _, images, points = _random_model(rng)
+    for cap in (5, 20, 100):
+        assert (tpost.select_track_length(points, cap)
+                == jpost.select_track_length(points, cap))
+    xyzs = rng.uniform(-0.1, 0.1, (200, 3))
+    xyzs[100:110] = xyzs[:10] + 1e-4          # close pairs that merge
+    ids = np.arange(200) * 3
+    corners = np.array([[-1, -1, -1], [-1, 1, -1], [1, 1, -1], [1, -1, -1],
+                        [-1, -1, 1], [-1, 1, 1], [1, 1, 1], [1, -1, 1]]) * 0.08
+    for got, ref in zip(tpost.filter_by_3d_box(xyzs, ids, corners),
+                        jpost.filter_by_3d_box(xyzs, ids, corners)):
+        np.testing.assert_array_equal(got, ref)
+    g_xyz, g_idx = tpost.merge_points(xyzs, ids)
+    r_xyz, r_idx = jpost.merge_points(xyzs, ids)
+    np.testing.assert_array_equal(g_xyz, r_xyz)
+    assert g_idx.keys() == r_idx.keys() and len(r_xyz) <= 190
+    for k in r_idx:
+        np.testing.assert_array_equal(g_idx[k], r_idx[k])
+
+
+def test_export_database_equal(tmp_path):
+    """The same COLMAP database, table by table, from the same feature and
+    match files and verified geometry."""
+    import h5py
+
+    from onepose_tpu.sfm.match import names_to_pair
+
+    rng = np.random.default_rng(13)
+    names = [f"/d/s/color/{i}.png" for i in range(4)]
+    feat, match = str(tmp_path / "f.h5"), str(tmp_path / "m.h5")
+    with h5py.File(feat, "w") as f:
+        for n in names:
+            f.create_group(n).create_dataset(
+                "keypoints", data=rng.uniform(0, 512, (30, 2)).astype(
+                    np.float32))
+    pairs = [(names[0], names[1]), (names[1], names[0]), (names[2], names[3]),
+             (names[1], names[3])]
+    verified = {}
+    with h5py.File(match, "w") as f:
+        for a, b in pairs[::2] + pairs[3:]:
+            m0 = rng.integers(-1, 30, 30)
+            f.create_group(names_to_pair(a, b)).create_dataset(
+                "matches0", data=m0)
+            idx = np.stack([np.flatnonzero(m0 >= 0), m0[m0 >= 0]], 1)[:10]
+            verified[(a, b)] = ({"matches": idx, "F": rng.normal(size=(3, 3)),
+                                 "E": rng.normal(size=(3, 3)), "H": np.eye(3),
+                                 "qvec": rng.normal(size=4),
+                                 "tvec": rng.normal(size=3)}
+                                if a == names[0] else idx)
+    Ks = {n: np.array([[500.0, 0, 256], [0, 500, 256], [0, 0, 1]])
+          for n in names}
+    sizes = {n: (512, 512) for n in names}
+    tables = []
+    for name, mod in (("t", tdb), ("j", jdb)):
+        path = str(tmp_path / f"{name}.db")
+        ids = mod.export_database(feat, match, pairs, Ks, sizes, verified,
+                                  path)
+        conn = sqlite3.connect(path)
+        tables.append((ids, {t: conn.execute(
+            f"SELECT * FROM {t}").fetchall() for t in (
+            "cameras", "images", "keypoints", "descriptors", "matches",
+            "two_view_geometries")}))
+        conn.close()
+    assert tables[0] == tables[1]
+    assert len(tables[1][1]["two_view_geometries"]) == 3
+    assert tdb.pair_id_of(3, 1) == jdb.pair_id_of(3, 1)
+
+
+def test_merge_anno_equal(tmp_path):
+    rng = np.random.default_rng(14)
+    for obj in ("a", "b"):
+        d = tmp_path / obj / "outputs_superpoint_superglue" / "anno"
+        d.mkdir(parents=True)
+        for f in ("anno_3d_average.npz", "anno_3d_collect.npz", "idxs.npy"):
+            (d / f).write_bytes(b"")
+        json.dump([{"anno_id": i, "anno_file": f"{obj}/{i}.json",
+                    "img_file": f"{obj}/{i}.png",
+                    "pose_file": f"{obj}/{i}.txt"}
+                   for i in range(int(rng.integers(1, 5)))],
+                  open(d / "anno_2d.json", "w"))
+    names = ["a", "missing", "b"]
+    got = tmerge.merge_anno(str(tmp_path), names, str(tmp_path / "t.json"))
+    ref = jmerge.merge_anno(str(tmp_path), names, str(tmp_path / "j.json"))
+    assert got == ref > 0
+    assert (tmp_path / "t.json").read_text() == (tmp_path / "j.json").read_text()
+
+
+def _tree(root):
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            p = osp.join(d, f)
+            out[osp.relpath(p, root)] = (os.readlink(p) if osp.islink(p)
+                                         else open(p, "rb").read())
+    return out
+
+
+def test_parse_scanned_data_equal(tmp_path):
+    """Both ingest entries on the same synthetic ARKit capture write the
+    same files (poses, boxes, crops, intrinsics, transforms)."""
+    pytest.importorskip("cv2")
+    import parse_scanned_data as jpsd
+    from onepose_tpu_torch import parse_scanned_data as tpsd
+    from test_parse_scanned_data import synth_capture
+
+    trees = []
+    for name, mod in (("t", tpsd), ("j", jpsd)):
+        root = tmp_path / name / "0999-obj-box"
+        synth_capture(root / "obj-annotate", np.random.default_rng(15),
+                      n_frames=4)
+        synth_capture(root / "obj-test", np.random.default_rng(16),
+                      n_frames=3)
+        mod.data_process_anno(str(root / "obj-annotate"))
+        mod.data_process_test(str(root / "obj-test"))
+        tree = _tree(str(tmp_path / name))
+        # the *_ba links name their own tree
+        trees.append({k: v.replace(str(tmp_path / name), "") if
+                      isinstance(v, str) else v for k, v in tree.items()})
+    assert trees[0] == trees[1]
+    assert len([k for k in trees[1] if k.endswith(".png")]) >= 11
+
+
+def test_video2img_equal(tmp_path):
+    cv2 = pytest.importorskip("cv2")
+    import video2img as jv2i
+    from onepose_tpu_torch import video2img as tv2i
+
+    video = str(tmp_path / "v.mp4")
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                             (64, 48))
+    rng = np.random.default_rng(17)
+    for _ in range(7):
+        writer.write(rng.integers(0, 256, (48, 64, 3), np.uint8))
+    writer.release()
+    assert (tv2i.video2img(video, str(tmp_path / "t"), 2)
+            == jv2i.video2img(video, str(tmp_path / "j"), 2) == 4)
+    assert _tree(str(tmp_path / "t")) == _tree(str(tmp_path / "j"))

@@ -285,6 +285,53 @@ def test_segment_sum_matches_jax():
     assert all(torch.equal(runs[0], r) for r in runs[1:])
 
 
+def _largest_tensor(fn):
+    """The most elements of any tensor an aten op returns while ``fn``
+    runs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Largest(TorchDispatchMode):
+        numel = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in torch.utils._pytree.tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    Largest.numel = max(Largest.numel, t.numel())
+            return out
+
+    with Largest():
+        fn()
+    return Largest.numel
+
+
+@pytest.mark.parametrize("kw", [{}, {"fix_points": True},
+                                {"fix_cameras": True}],
+                         ids=["schur", "fix_points", "fix_cameras"])
+def test_lm_operands_are_linear_in_observations(kw):
+    """No tensor of a solve grows as points x observations or as cameras x
+    observations: at 6 cameras and 300 points, the largest is bounded by
+    the per-observation blocks (36 O), the per-point camera blocks
+    (18 P C) or the dense camera system ((6 C)^2), whichever is larger, at
+    O = 3,000 and at O = 12,000."""
+    rng = np.random.default_rng(8)
+    C, P = 6, 300
+    for O in (3000, 12000):
+        prob = tlm.BAProblem(
+            cameras=torch.from_numpy(np.concatenate(
+                [rng.normal(size=(C, 3)) * 0.1,
+                 rng.normal(size=(C, 3)) * 0.1 + [0, 0, 2]], 1)).float(),
+            points=torch.from_numpy(rng.normal(size=(P, 3)) * 0.3).float(),
+            cam_idx=torch.from_numpy(rng.integers(0, C, O)),
+            pt_idx=torch.from_numpy(rng.integers(0, P, O)),
+            uv=torch.from_numpy(rng.uniform(0, 512, (O, 2))).float(),
+            K=torch.tensor([[500.0, 500.0, 256.0, 256.0]]).expand(O, 4),
+            mask=torch.ones(O, dtype=torch.bool))
+        largest = _largest_tensor(
+            lambda: tlm.solve_ba(prob, iterations=2, **kw))
+        assert largest <= max(36 * O, 18 * P * C, (6 * C) ** 2), (O, largest)
+
+
 def test_pose_camera_round_trip_matches_jax():
     rng = np.random.default_rng(7)
     cams = np.concatenate([rng.normal(size=(5, 3)) * 0.8,
