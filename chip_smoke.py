@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``onepose_tpu_torch/csrc`` at
 first use (into ``build/onepose_tpu_torch/``, counted in this run's time)
-and runs eleven phases; weights and inputs come from fixed seeds.
+and runs thirteen phases; weights and inputs come from fixed seeds.
 
   1. card name and power limit (nvidia-smi);
   2. kernel build time, ptxas register use, and the count of tensor-core
@@ -77,9 +77,34 @@ and runs eleven phases; weights and inputs come from fixed seeds.
      triangulation within 2 mm median of the truth, postprocess at most
      2,500 points, global BA (max_obs 65536) lowering its cost and
      repeating its bits over two runs, peak memory, ms a stage. Their
-     files go to ``build/chip_smoke_sfm/``.
+     files go to ``build/chip_smoke_sfm/``;
+ 12. training at ``configs/experiment/train_GATsSPG.yaml``'s width
+     (GATsSPG D=256, 4 heads, 4 x [GATs, self, cross]; batch 8, shape2d
+     1000, shape3d 2000, leaf 8; Adam 1e-3, clip 0.5, accumulation 2) on
+     the DB that 11a built, merged by ``merge_anno``: (a) the gather
+     path's batch on the card equal to the host path's dense batch, and
+     its leaves sampled on the card equal to the CPU's from the same
+     uniforms; (b) one step at batch 1 on the card and on the CPU from
+     the same parameters, each against an fp64 reference: the card's loss
+     within twice the CPU's fp32 error, its gradients within 5e-2 of their
+     largest entry (fp32 reads 2e-3 to 1e-2 on this model; the card with
+     TF32 products allowed must exceed it), the parameters within Adam's
+     bound of the two devices' disagreement; (c)
+     micro-steps timed by CUDA events on one fixed batch (the loss falls),
+     samples/s, peak memory, one step profiled; (d) the train entry for an
+     epoch, its validation through ``PosePipeline`` launching both
+     kernels, the checkpoint read by ``load_gats_spg`` and a batch posed
+     with it;
+ 13. SuperPoint's bf16 preset (the eval entries' default): extract ms at
+     [8,512,512,1] in fp32 (the stem kernel) and in the preset (no stem
+     kernel), the preset's keypoint Jaccard against fp32, and
+     ``scripts/stem_dtype_gate.py``'s rule over planted worlds with the
+     RANSAC noise injected: the preset's pose delta against fp32 within
+     twice fp32's own key-to-key noise floor (two noise draws; medians and
+     95th percentiles, floors at least 0.05 and 0.1 deg) and no more
+     cmd1/3/5 bucket flips than that floor makes.
 
-Each main path (phases 7, 8, 9, 10b and 11a) is driven once with the launch
+Each main path (phases 7, 8, 9, 10b, 11a and 12d) is driven once with the launch
 counts set to 0 just before it and read just after; the kernels line sums
 those counts. Every phase's launches, comparisons included, are in the JSON.
 Detailed results go to ``DIR/chip_smoke.json`` and ``DIR/profile.txt``
@@ -131,6 +156,27 @@ SFM_IMAGES, SFM_BATCH, SFM_KPTS = 60, 16, 4096
 # phase 11's files (about 1 GB), apart from the results directory
 SFM_WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke_sfm")
+# phase 12 trains the configuration of configs/experiment/train_GATsSPG.yaml
+# (tests/test_torch_train.py holds these values equal to the file, which
+# the card's machine cannot parse: it has no yaml)
+TRAIN_YAML = {
+    "model": {"lr": 1e-3, "weight_decay": 0.0, "milestones": [5, 10, 15, 20],
+              "gamma": 0.5, "descriptor_dim": 256, "match_threshold": 0.2,
+              "scale_factor": 0.07, "include_self": True,
+              "with_linear_transform": False, "additional": False},
+    "trainer": {"gradient_clip_val": 0.5, "accumulate_grad_batches": 2},
+    "datamodule": {"batch_size": 8, "num_leaf": 8, "shape2d": 1000,
+                   "shape3d": 2000, "assign_pad_val": 0,
+                   "device_resident": True},
+}
+TRAIN_ITEMS, VAL_ITEMS = 16, 8     # 12: frames of 11a's capture per split
+TRAIN_WARMUP, TRAIN_TIMED = 6, 24  # 12c: micro-steps
+# 12b: the card's gradients against fp64, of their largest entry: above
+# fp32's 2e-3 to 1e-2 on this model (train_card_vs_cpu says why)
+TRAIN_GRAD_GATE = 5e-2
+# phase 13: the bf16 gate's seeds, frames a seed, their size and keypoints,
+# and the DB points each frame plants
+GATE_SEEDS, GATE_FRAMES, GATE_HW, GATE_KPTS, GATE_POINTS = 4, 4, 256, 512, 96
 
 
 def log(*args):
@@ -1267,6 +1313,10 @@ class Smoke:
 
         torch.cuda.reset_peak_memory_stats()
         res = self.path_launches("sfm", sfm_path, kernels=("stem",))
+        # phase 12 trains on this capture's DB
+        self.sfm_capture = {"names": names, "K": K, "poses": poses,
+                            "images": images, "sp_model": sp_model,
+                            "out": out}
         stats["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
         stats["stage_ms"] = {name: (t - t0) * 1e3 for (_, t0), (name, t)
                              in zip(marks, marks[1:])}
@@ -1507,6 +1557,472 @@ class Smoke:
         log("   sfm features ms: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                                ms.items()) + f"  [{self.smi}]")
 
+    # -- 12 ---------------------------------------------------------------
+    def training(self):
+        """12: the GATsSPG matcher trained at train_GATsSPG.yaml's width on
+        the DB that 11a built (11a's ``sfm_capture``): the training and
+        validation indices, then (a)-(d) of the module docstring."""
+        import shutil
+
+        from onepose_tpu_torch.datasets.merge import merge_anno
+
+        stats = self.results["training"] = {}
+        cap = self.sfm_capture
+        work = os.path.join(SFM_WORK, "train")
+        shutil.rmtree(work, ignore_errors=True)
+        link = os.path.join(work, "sfm_model", "ring",
+                            "outputs_superpoint_superglue")
+        os.makedirs(os.path.dirname(link))
+        os.symlink(cap["out"], link)
+        merged = os.path.join(work, "all.json")
+        stats["items"] = merge_anno(os.path.join(work, "sfm_model"),
+                                    ["ring"], merged)
+        with open(merged) as f:
+            index = json.load(f)
+        paths = {}
+        for split, n in (("train", TRAIN_ITEMS), ("val", VAL_ITEMS)):
+            paths[split] = os.path.join(work, f"{split}.json")
+            with open(paths[split], "w") as f:
+                json.dump({k: v[:n] for k, v in index.items()}, f)
+        # the intrinsics and poses the validation reads beside each frame
+        for name, pose in zip(cap["names"], cap["poses"]):
+            for sub, arr in (("intrin_ba", cap["K"]),
+                             ("poses_ba", np.vstack([pose, [0, 0, 0, 1]]))):
+                path = name.replace("/color/", f"/{sub}/").replace(
+                    ".png", ".txt")
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                np.savetxt(path, arr)
+        self.check(stats["items"] >= TRAIN_ITEMS,
+                   f"training: merge_anno indexed {stats['items']} frames of "
+                   f"11a's capture (train on {TRAIN_ITEMS}, validate on "
+                   f"{VAL_ITEMS})")
+        self.train_gather_vs_host(paths["train"], stats)
+        self.train_card_vs_cpu(paths["train"], stats)
+        self.train_timed(paths["train"], stats)
+        self.train_entry(paths, work, stats)
+
+    def train_gather_vs_host(self, train_json, stats):
+        """12a: the gather path's batch on the card against the host
+        path's dense batch, and leaves sampled on the card against the
+        CPU's from the same uniforms: both exact."""
+        from onepose_tpu_torch.datasets.gats_dataset import GATsSPGDataset
+        from onepose_tpu_torch.train import trainer
+
+        dm = TRAIN_YAML["datamodule"]
+        bs, leaf, s2, s3 = (dm[k] for k in ("batch_size", "num_leaf",
+                                            "shape2d", "shape3d"))
+        kw = dict(num_leaf=leaf, shape2d=s2, shape3d=s3,
+                  pad_val=dm["assign_pad_val"], seed=0)
+
+        def dataset():
+            return GATsSPGDataset(train_json, split="train", **kw)
+
+        t0 = time.perf_counter()
+        ds = dataset()
+        db_np, obj_index = ds.device_db()
+        self.train_db = (db_np, obj_index)
+        host = next(dataset().batches(bs, seed=1, num_threads=1))
+        stats["data_s"] = time.perf_counter() - t0
+        keys = ("clt_stack", "avg_stack", "count_stack", "offset_stack")
+
+        def materialize(light, dev):
+            return trainer.materialize_light_batch(
+                {k: torch.as_tensor(db_np[k], device=dev) for k in keys},
+                {k: torch.as_tensor(v, device=dev) for k, v in light.items()},
+                s2, s3, dm["assign_pad_val"], leaf)
+
+        light = next(ds.light_batches(obj_index, db_np["t_max"], bs, seed=1))
+        got = materialize(light, self.dev)
+        diff = {k: int((got[k].cpu() != torch.from_numpy(host[k])).sum())
+                for k in host if k in got}
+        seeded = next(dataset().light_batches(
+            obj_index, db_np["t_max"], bs, seed=1, on_device_leaves=True))
+        seeded["leaf_uniform"] = trainer.leaf_uniforms(
+            seeded.pop("leaf_seed"), leaf, s3)
+        card = materialize(seeded, self.dev)
+        cpu = materialize(seeded, torch.device("cpu"))
+        leaf_diff = {k: int((card[k].cpu() != cpu[k]).sum()) for k in cpu}
+        stats["gather"] = {"host_diff": diff, "leaf_card_vs_cpu": leaf_diff,
+                           "clt_mb": db_np["clt_stack"].nbytes / 1e6,
+                           "t_max": int(db_np["t_max"])}
+        self.check(len(diff) == 4 and not any(diff.values())
+                   and not any(leaf_diff.values()),
+                   f"training (a): the gather path's batch on the card "
+                   f"equals the host path's, elements apart {diff}; leaves "
+                   f"sampled on the card equal the CPU's, apart "
+                   f"{leaf_diff} ({stats['data_s']:.1f} s to read the data)")
+
+    def train_card_vs_cpu(self, train_json, stats):
+        """12b: one step (no accumulation) of the full model at batch 1 on
+        11a's data, on the card and on the CPU from the same parameters and
+        uniforms, each against an fp64 reference of the loss and gradients
+        (on the CPU); then the card again with TF32 products allowed, a
+        control the gate must refuse.
+
+        At D=256 and 4 blocks fp32's gradients stand 2e-3 to 1e-2 of their
+        largest entry from fp64 on the CPU too (random descriptors read the
+        same): the mlp0 weights' gradients are sums over the tokens that
+        instance norm makes cancel, around a message that linear attention
+        makes nearly constant across tokens. So the card's loss is held
+        within twice the CPU's fp32 error plus 1e-6, its gradients within
+        TRAIN_GRAD_GATE of fp64 (which the TF32 control must exceed), and
+        the parameters within what Adam makes of the gradients' measured
+        disagreement δ: its first step is lr·ĝ/(|ĝ|+ε) of the clipped
+        gradient ĝ, so an entry may move by lr·min(2, 2δ/(|ĝ|+ε)), plus
+        2e-6 of rounding."""
+        from onepose_tpu_torch.datasets.gats_dataset import GATsSPGDataset
+        from onepose_tpu_torch.models import convert
+        from onepose_tpu_torch.ops.precision import pin_fp32
+        from onepose_tpu_torch.train import trainer
+
+        dm = TRAIN_YAML["datamodule"]
+        leaf, s2, s3 = dm["num_leaf"], dm["shape2d"], dm["shape3d"]
+        cfg = train_gats_config()
+        params = convert.init_gats_spg_params(np.random.default_rng(5), cfg)
+        opt = {**train_optimizer_kwargs(1), "accumulate_steps": 1}
+        cpu = torch.device("cpu")
+        ds = GATsSPGDataset(train_json, split="train", num_leaf=leaf,
+                            shape2d=s2, shape3d=s3, seed=0)
+        db_np, obj_index = self.train_db
+        light = next(ds.light_batches(obj_index, db_np["t_max"], 1, seed=2,
+                                      on_device_leaves=True))
+        light["leaf_uniform"] = trainer.leaf_uniforms(
+            light.pop("leaf_seed"), leaf, s3)
+        keys = ("clt_stack", "avg_stack", "count_stack", "offset_stack")
+
+        def batch(dev):
+            return trainer.materialize_light_batch(
+                {k: torch.as_tensor(db_np[k], device=dev) for k in keys},
+                {k: torch.as_tensor(v, device=dev) for k, v in light.items()},
+                s2, s3, dm["assign_pad_val"], leaf)
+
+        def step(dev):
+            grads = []
+
+            def keep(names, gs):
+                grads.append([g.detach().cpu().double() for g in gs])
+                return gs
+
+            state = trainer.init_train_state(
+                trainer.make_optimizer(**opt, grad_transforms=[keep]), cfg,
+                model=convert.gats_spg_from_jax(params), device=dev)
+            state, loss = trainer.train_step(state, batch(dev), cfg)
+            return (float(loss), grads[0],
+                    [p.detach().cpu() for p in state.model.parameters()])
+
+        model = convert.gats_spg_from_jax(params).double()
+        loss64 = trainer.compute_loss(model, batch(cpu), cfg)
+        loss64.backward()
+        ref_loss = loss64.item()
+        ref = [p.grad for p in model.parameters()]
+        scale = max(float(g.abs().max()) for g in ref)
+        sides = {"card": step(self.dev), "cpu": step(cpu)}
+        try:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.set_float32_matmul_precision("high")
+            sides["card_tf32"] = step(self.dev)
+        finally:
+            pin_fp32()
+        err = {side: {"loss": abs(v[0] / ref_loss - 1),
+                      "grad": max(float((g - r).abs().max())
+                                  for g, r in zip(v[1], ref)) / scale}
+               for side, v in sides.items()}
+        (_, g_card, p_card), (_, g_cpu, p_cpu) = (sides["card"],
+                                                  sides["cpu"])
+        delta = max(float((a - c).abs().max()) for a, c in zip(g_card, g_cpu))
+        norm = float(torch.sqrt(sum((g ** 2).sum() for g in g_cpu)))
+        clip = min(1.0, opt["grad_clip"] / norm)
+        worst = p_err = 0.0
+        for a, c, g in zip(p_card, p_cpu, g_cpu):
+            bound = 2e-6 + opt["base_lr"] * torch.clamp(
+                2 * delta * clip / (g.abs() * clip + 1e-8), max=2.0)
+            worst = max(worst, float(((a - c).abs() / bound).max()))
+            p_err = max(p_err, float((a - c).abs().max()))
+        positives = int((batch(cpu)["conf_gt"] == 1).sum())
+        stats["card_vs_cpu"] = {
+            "shape": [1, s2, s3, leaf], "loss_fp64": ref_loss,
+            "err_vs_fp64": err, "grad_delta": delta, "param_err": p_err,
+            "bound_used": worst, "positives": positives}
+        ok = (err["card"]["loss"] <= 2 * err["cpu"]["loss"] + 1e-6
+              and err["card"]["grad"] < TRAIN_GRAD_GATE
+              and err["card_tf32"]["grad"] > TRAIN_GRAD_GATE
+              and worst <= 1.0 and positives > 0)
+        self.check(ok, f"training (b): one step at [1,{s2},{s3}] on 11a's "
+                   f"data ({positives} GT matches) against fp64: card loss "
+                   f"{err['card']['loss']:.2e}, CPU {err['cpu']['loss']:.2e} "
+                   f"(the card within 2x + 1e-6); gradients card "
+                   f"{err['card']['grad']:.2e}, CPU {err['cpu']['grad']:.2e}"
+                   f" of their largest (gate {TRAIN_GRAD_GATE:.0e}), the card "
+                   f"with TF32 {err['card_tf32']['grad']:.2e} (must exceed "
+                   f"it; loss {err['card_tf32']['loss']:.2e}); parameters "
+                   f"{p_err:.2e} apart, {worst:.3f} of Adam's bound")
+
+    def train_timed(self, train_json, stats):
+        """12c: full-width micro-steps (the gather step: leaf sampling and
+        conf_gt on the card, forward, backward, the optimizer) on one fixed
+        batch, each timed by CUDA events after warm-up; the loss must be
+        finite and fall."""
+        from onepose_tpu_torch.datasets.gats_dataset import GATsSPGDataset
+        from onepose_tpu_torch.train import trainer
+
+        dm = TRAIN_YAML["datamodule"]
+        bs, leaf, s2, s3 = (dm[k] for k in ("batch_size", "num_leaf",
+                                            "shape2d", "shape3d"))
+        db_np, obj_index = self.train_db
+        ds = GATsSPGDataset(train_json, split="train", num_leaf=leaf,
+                            shape2d=s2, shape3d=s3, seed=0)
+        light = next(ds.light_batches(obj_index, db_np["t_max"], bs, seed=3,
+                                      on_device_leaves=True))
+        light["leaf_uniform"] = trainer.leaf_uniforms(
+            light.pop("leaf_seed"), leaf, s3)
+        light = {k: torch.as_tensor(v, device=self.dev)
+                 for k, v in light.items()}
+        cfg = train_gats_config()
+        torch.cuda.reset_peak_memory_stats()
+        state = trainer.init_train_state(
+            trainer.make_optimizer(**train_optimizer_kwargs(
+                max(self.results["training"]["items"] // bs, 1))),
+            cfg, seed=0, device=self.dev)
+        step = trainer.make_gather_train_step(
+            cfg, {k: torch.as_tensor(db_np[k], device=self.dev) for k in (
+                "clt_stack", "avg_stack", "count_stack", "offset_stack")},
+            s2, s3, dm["assign_pad_val"], leaf)
+        losses = []
+
+        def micro():
+            nonlocal state
+            state, loss = step(state, light)
+            losses.append(loss)
+
+        ms = event_ms(micro, TRAIN_TIMED, TRAIN_WARMUP)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof, table = device_profile(micro)
+        with open(os.path.join(self.out_dir, "profile.txt"), "a") as f:
+            f.write(f"\n== train micro-step: {prof}\n{table}")
+        losses = [float(x) for x in losses]
+        med = float(np.median(ms))
+        t = stats["timed"] = {
+            "micro_step_ms": ms, "median_ms": med, "min_ms": min(ms),
+            "max_ms": max(ms), "p10_ms": float(np.percentile(ms, 10)),
+            "p90_ms": float(np.percentile(ms, 90)),
+            "samples_per_s": bs * 1000.0 / med, "peak_gb": peak,
+            "losses": losses, "updates": state.optimizer.updates,
+            "profile": prof}
+        falls = float(np.mean(losses[-4:])) < losses[0]
+        self.check(all(np.isfinite(losses)) and falls,
+                   f"training (c): {TRAIN_TIMED} micro-steps at batch {bs}, "
+                   f"[{s2}]x[{s3}], leaf {leaf}: median {med:.3f} ms "
+                   f"(p10 {t['p10_ms']:.3f}, p90 {t['p90_ms']:.3f}, min "
+                   f"{t['min_ms']:.3f}, max {t['max_ms']:.3f}), "
+                   f"{t['samples_per_s']:.1f} samples/s, peak {peak:.2f} "
+                   f"GiB; busy share {prof['busy_share']:.3f}; loss "
+                   f"{losses[0]:.4f} -> {losses[-1]:.4f} over "
+                   f"{len(losses)} steps on one batch  [{self.smi}]")
+
+    def train_entry(self, paths, work, stats):
+        """12d: ``train/entry.train`` for an epoch at the yaml's width (its
+        validation runs ``PosePipeline``: both kernels), then the epoch
+        checkpoint read by ``load_gats_spg`` and a batch posed with it.
+        The card's machine has no cv2: the validation reads the capture's
+        frames from memory, and its match figures are counted, not
+        drawn."""
+        from onepose_tpu_torch import pipeline
+        from onepose_tpu_torch.config import Config
+        from onepose_tpu_torch.datasets import anno
+        from onepose_tpu_torch.sfm import extract
+        from onepose_tpu_torch.train import entry
+        from onepose_tpu_torch.utils import model_io, vis_utils
+
+        cap = self.sfm_capture
+        sp_path = os.path.join(work, "superpoint.pth")
+        torch.save(cap["sp_model"].state_dict(), sp_path)
+        ckpts = os.path.join(work, "ckpts")
+        def wrap(d):
+            return Config({k: wrap(v) if isinstance(v, dict) else v
+                           for k, v in d.items()})
+
+        cfg = wrap({
+            "type": "train", "seed": 0, "device": str(self.dev),
+            "parallel": {"n_devices": None},
+            "model": {**TRAIN_YAML["model"], "spp_model_path": sp_path},
+            "trainer": {**TRAIN_YAML["trainer"], "max_epochs": 1,
+                        "log_every_n_steps": 1},
+            "datamodule": {**TRAIN_YAML["datamodule"],
+                           "train_anno_file": paths["train"],
+                           "val_anno_file": paths["val"]},
+            "checkpoint": {"dirpath": ckpts},
+            "logging": {"log_dir": os.path.join(work, "logs"),
+                        "wandb_project": None}})
+        frames = dict(zip(cap["names"], cap["images"]))
+        drawn = []
+        saved = extract.load_gray, vis_utils.draw_matches
+        extract.load_gray = lambda path, resize_hw=None: frames[path]
+        vis_utils.draw_matches = lambda *a, **k: drawn.append(
+            k.get("save_path"))
+        t0 = time.perf_counter()
+        try:
+            state, metrics = self.path_launches("train",
+                                                lambda: entry.train(cfg))
+        finally:
+            extract.load_gray, vis_utils.draw_matches = saved
+        entry_s = time.perf_counter() - t0
+        ckpt = model_io.latest_checkpoint(ckpts)
+        model = model_io.load_gats_spg(ckpt)
+        same = all(torch.equal(a, c.detach().cpu()) for a, c in zip(
+            model.parameters(), state.model.parameters()))
+        dm = TRAIN_YAML["datamodule"]
+        db = anno.load_object_db(*(os.path.join(cap["out"], "anno", x) for x in (
+            "anno_3d_average.npz", "anno_3d_collect.npz", "idxs.npy")),
+            num_leaf=dm["num_leaf"])
+        pipe = pipeline.PosePipeline(
+            cap["sp_model"], model, db, gats_config=train_gats_config(),
+            sp_config={"max_keypoints": K_PTS}, num_hypotheses=HYP,
+            device=self.dev)
+        Ks = np.broadcast_to(cap["K"].astype(np.float32), (B, 3, 3)).copy()
+        gen = torch.Generator(device=self.dev).manual_seed(4)
+        out = self.path_launches(
+            "train-validate",
+            lambda: pipe(cap["images"][:B, ..., None], Ks, generator=gen))
+        finite = bool(torch.isfinite(out.poses).all())
+        with open(os.path.join(work, "logs", "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        stats["entry"] = {"s": entry_s, "checkpoint": os.path.basename(ckpt),
+                          "steps": state.step,
+                          "updates": state.optimizer.updates,
+                          "metrics": metrics, "logged": logged,
+                          "figures": len(drawn),
+                          "validate_matches": out.num_matches.tolist()}
+        self.check(same and finite and state.step == TRAIN_ITEMS // dm[
+            "batch_size"] and {"train_loss", "5cm@5degree",
+                               "val_f1/match_correct"} <= set(metrics),
+                   f"training (d): the entry trained {state.step} "
+                   f"micro-steps and validated in {entry_s:.1f} s, "
+                   f"{os.path.basename(ckpt)} read by load_gats_spg "
+                   f"(parameters equal {same}) and a batch of {B} posed with "
+                   f"it (finite {finite}); metrics {metrics}")
+
+    # -- 13 ---------------------------------------------------------------
+    def bf16_preset(self):
+        """13: SuperPoint's bf16 preset against fp32 at [8,512,512,1] (ring
+        views of the textured plane): extract ms, stem launches, keypoint
+        Jaccard; then the gate."""
+        from onepose_tpu_torch.models import convert, superpoint
+        from onepose_tpu_torch.utils.synthetic import ring_views
+
+        stats = self.results["bf16_preset"] = {}
+        rng = np.random.default_rng(13)
+        sp_model = convert.superpoint_from_jax(
+            convert.init_superpoint_params(rng)).to(self.dev)
+        _, _, views = ring_views(rng, B, hw=H, focal=float(KMAT[0, 0]))
+        images = torch.from_numpy(views[..., None]).to(self.dev)
+        fp32 = {"max_keypoints": K_PTS, "nms_radius": 3}
+        preset = {**fp32, **superpoint.entry_preset({})}
+        before = launch_counts()["stem"]
+        det16 = superpoint.extract(sp_model, images, preset)
+        torch.cuda.synchronize()
+        stem_launches = launch_counts()["stem"] - before
+        det32 = superpoint.extract(sp_model, images, fp32)
+        jac = [keypoint_jaccard(det32, det16, i) for i in range(B)]
+        stats.update({
+            "preset": preset, "stem_launches_in_preset": stem_launches,
+            "extract_ms": {
+                "fp32": cuda_ms(lambda: superpoint.extract(
+                    sp_model, images, fp32), 10, 2),
+                "preset": cuda_ms(lambda: superpoint.extract(
+                    sp_model, images, preset), 10, 2)},
+            "kpt_jaccard": jac})
+        ms = stats["extract_ms"]
+        self.check(stem_launches == 0 and bool(
+            torch.isfinite(det16.descriptors).all()) and min(jac) > 0.5,
+                   f"bf16 preset at [{B},{H},{W},1]: extract {ms['preset']:.3f}"
+                   f" ms (fp32 with the stem kernel {ms['fp32']:.3f}), stem "
+                   f"launches in the preset {stem_launches}, keypoint "
+                   f"Jaccard against fp32 median {np.median(jac):.4f}, min "
+                   f"{min(jac):.4f}  [{self.smi}]")
+        self.bf16_gate(stats)
+
+    def bf16_gate(self, stats):
+        """13, ``scripts/stem_dtype_gate.py``'s rule on the card: per seed,
+        ring views of the textured plane with known poses; a DB planted from
+        each frame's fp32 keypoints (``planted_world``) and a GATsSPG that
+        matches by descriptor self-similarity (``plant_gats_spg``); fp32
+        with noise draws A and B (the solver's key-to-key floor) and the
+        preset with draw A."""
+        from onepose_tpu_torch import pipeline
+        from onepose_tpu_torch.models import convert, superpoint
+        from onepose_tpu_torch.ops import epnp
+        from onepose_tpu_torch.utils import geometry as geo
+        from onepose_tpu_torch.utils.synthetic import ring_views
+
+        res = {k: [] for k in ("dr_bf16", "dt_bf16", "dr_floor", "dt_floor",
+                               "kpt_jaccard", "match_jaccard")}
+        buckets = {"fp32": [], "bf16": [], "floor": []}
+        base = {"max_keypoints": GATE_KPTS, "nms_radius": 3}
+        nb, leaf = GATE_FRAMES, 4
+        for seed in range(GATE_SEEDS):
+            rng = np.random.default_rng(100 + seed)
+            sp_model = convert.superpoint_from_jax(
+                convert.init_superpoint_params(rng)).to(self.dev)
+            kmat, poses, views = ring_views(rng, nb, hw=GATE_HW, focal=230.0,
+                                            arc_deg=40.0)
+            images = views[..., None]
+            det = superpoint.extract(sp_model, torch.from_numpy(images).to(
+                self.dev), base)
+            db, gats = planted_world(det, kmat, poses, rng, GATE_POINTS, leaf)
+            kw = dict(num_hypotheses=HYP, refine_iters=5, device=self.dev)
+            gats_model = convert.gats_spg_from_jax(gats)
+            pipe32 = pipeline.PosePipeline(sp_model, gats_model, db,
+                                           sp_config=base, **kw)
+            pipe16 = pipeline.PosePipeline(
+                sp_model, gats_model, db,
+                sp_config={**base, **superpoint.entry_preset({})}, **kw)
+            gen = torch.Generator().manual_seed(seed)
+            noise_a, noise_b = (to_device(epnp.draw_noise(
+                nb, GATE_KPTS, HYP, 64, gen), self.dev) for _ in range(2))
+            Ks = np.broadcast_to(kmat.astype(np.float32), (nb, 3, 3)).copy()
+            a = pipe32(images, Ks, noise=noise_a)
+            floor = pipe32(images, Ks, noise=noise_b)
+            b16 = pipe16(images, Ks, noise=noise_a)
+            for i in range(nb):
+                p = {n: o.poses[i].cpu().numpy() for n, o in (
+                    ("fp32", a), ("floor", floor), ("bf16", b16))}
+                dr, dt = geo.query_pose_error(p["bf16"], p["fp32"])
+                fr, ft = geo.query_pose_error(p["floor"], p["fp32"])
+                res["dr_bf16"].append(float(dr))
+                res["dt_bf16"].append(float(dt))
+                res["dr_floor"].append(float(fr))
+                res["dt_floor"].append(float(ft))
+                res["kpt_jaccard"].append(keypoint_jaccard(a, b16, i))
+                res["match_jaccard"].append(match_jaccard(a, b16, i))
+                for name, pose in p.items():
+                    r, t = geo.query_pose_error(pose, poses[i])
+                    buckets[name].append([bool(r < th and t < th)
+                                          for th in (1.0, 3.0, 5.0)])
+
+        def flips(name):
+            return sum(x != y for u, v in zip(buckets["fp32"], buckets[name])
+                       for x, y in zip(u, v))
+
+        med = {k: float(np.median(v)) for k, v in res.items()}
+        p95 = {k: float(np.percentile(v, 95)) for k, v in res.items()}
+        rule = {
+            "median": med["dr_bf16"] <= 2 * max(med["dr_floor"], 0.05),
+            "p95": p95["dr_bf16"] <= 2 * max(p95["dr_floor"], 0.1),
+            "flips": flips("bf16") <= max(flips("floor"), 1)}
+        stats["gate"] = {
+            "frames": len(res["dr_bf16"]), "median": med, "p95": p95,
+            "flips_bf16": flips("bf16"), "flips_floor": flips("floor"),
+            "cmd": {n: np.mean(v, 0).tolist() for n, v in buckets.items()},
+            "rule": rule, "per_frame": res}
+        self.check(all(rule.values()),
+                   f"bf16 gate over {len(res['dr_bf16'])} frames: pose delta "
+                   f"against fp32 median {med['dr_bf16']:.4f} / p95 "
+                   f"{p95['dr_bf16']:.4f} deg, fp32's key-to-key floor "
+                   f"{med['dr_floor']:.4f} / {p95['dr_floor']:.4f}; cmd "
+                   f"bucket flips {flips('bf16')} (floor {flips('floor')}); "
+                   f"keypoint Jaccard median {med['kpt_jaccard']:.4f}, match "
+                   f"Jaccard median {med['match_jaccard']:.4f}; {rule}")
+
     def kernels_line(self):
         st = self.results.get("stem", {}).get(str((B, H, W, 1)), {})
         mt = self.results.get("match", {}).get(
@@ -1719,6 +2235,109 @@ def match_bound_ms(b, n1, n2, d):
         "operations": 3 * 2 * b * n1 * n2 * d / PEAK_TF32})
 
 
+def train_gats_config() -> dict:
+    """GATsSPG's settings in TRAIN_YAML, as the train entry reads them."""
+    return {k: TRAIN_YAML["model"][k] for k in (
+        "descriptor_dim", "scale_factor", "match_threshold", "include_self",
+        "additional", "with_linear_transform")}
+
+
+def train_optimizer_kwargs(steps_per_epoch: int) -> dict:
+    """``trainer.make_optimizer``'s arguments from TRAIN_YAML, milestones
+    in micro-steps as the train entry converts them."""
+    m, t = TRAIN_YAML["model"], TRAIN_YAML["trainer"]
+    return {"base_lr": m["lr"], "weight_decay": m["weight_decay"],
+            "milestones_steps": [x * steps_per_epoch for x in m["milestones"]],
+            "gamma": m["gamma"], "grad_clip": t["gradient_clip_val"],
+            "accumulate_steps": t["accumulate_grad_batches"]}
+
+
+def keypoint_jaccard(a, b, i) -> float:
+    """Jaccard index of frame ``i``'s valid keypoint positions in two
+    outputs (SuperPoint's or PosePipeline's)."""
+    def kset(o):
+        kp = getattr(o, "keypoints", None)
+        kp = kp if kp is not None else o.keypoints2d
+        mask = o.mask if hasattr(o, "mask") else o.kpt_mask
+        return {tuple(p) for p in kp[i][mask[i]].tolist()}
+
+    sa, sb = kset(a), kset(b)
+    return len(sa & sb) / max(len(sa | sb), 1)
+
+
+def match_jaccard(a, b, i) -> float:
+    """Jaccard index of frame ``i``'s (keypoint position, 3D index)
+    matches in two PosePipeline outputs."""
+    def mset(o):
+        return {(tuple(p), m) for p, m in zip(o.keypoints2d[i].tolist(),
+                                              o.matches0[i].tolist())
+                if m >= 0}
+
+    sa, sb = mset(a), mset(b)
+    return len(sa & sb) / max(len(sa | sb), 1)
+
+
+def plant_gats_spg(params, mu):
+    """A copy of GATsSPG weights (JAX layout, numpy) that match a 2D
+    descriptor to the DB point holding the same one: each attention
+    layer's last linear is zero (no message reaches the tokens), each GATs
+    layer attends to its leaves alone (``a``'s 3D half zero, ``W`` the
+    identity, ``a``'s 2D half a large multiple of the descriptors' mean
+    direction) and returns elu(mean of the leaves), and the final
+    projection is x - mu, so matching is the cosine of the centred
+    descriptors (random SuperPoint descriptors share one dominant
+    direction)."""
+    params = copy.deepcopy(params)
+    d = len(mu)
+    for i, layer in enumerate(params["gnn"]):
+        if i % 3 == 0:
+            a = np.zeros((2 * d, 1), np.float32)
+            a[:d, 0] = 50.0 * mu / np.linalg.norm(mu)
+            layer.update(W=np.eye(d, dtype=np.float32), a=a)
+        else:
+            layer["mlp1"]["w"][:] = 0
+            layer["mlp1"]["b"][:] = 0
+    params["final_proj"] = {"w": np.eye(d, dtype=np.float32),
+                            "b": (-mu).astype(np.float32)}
+    return params
+
+
+def planted_world(det, kmat, poses, rng, per_frame, leaf):
+    """The bf16 gate's DB and matcher: each frame's first ``per_frame``
+    valid fp32 keypoints become DB points, back-projected at a random
+    depth under the frame's known pose, each holding the keypoint's
+    descriptor, its leaves elu⁻¹ of it (so a GATs layer of
+    ``plant_gats_spg`` returns the descriptor itself); the matcher is
+    ``plant_gats_spg`` around the DB descriptors' mean. → (ObjectDB,
+    GATsSPG weights in the JAX layout)."""
+    from onepose_tpu_torch.datasets import anno
+    from onepose_tpu_torch.models import convert
+
+    kinv = np.linalg.inv(np.asarray(kmat, np.float64))
+    pts, descs = [], []
+    for b, pose in enumerate(poses):
+        m = det.mask[b].cpu().numpy()
+        kp = det.keypoints[b].cpu().numpy()[m][:per_frame].astype(np.float64)
+        rays = np.concatenate([kp, np.ones((len(kp), 1))], 1) @ kinv.T
+        cam = rays * rng.uniform(0.4, 0.6, (len(kp), 1))
+        pts.append((cam - pose[:, 3]) @ pose[:, :3])
+        descs.append(det.descriptors[b].cpu().numpy()[m][:per_frame])
+    pts, descs = np.concatenate(pts), np.concatenate(descs).astype(np.float64)
+    n = len(pts)
+    leaves = np.where(descs > 0, descs, np.log1p(descs))
+    db = anno.build_object_db(
+        avg_keypoints3d=pts.astype(np.float32),
+        avg_descriptors3d=descs.T.astype(np.float32),
+        avg_scores3d=np.ones((n, 1), np.float32),
+        clt_descriptors=np.repeat(leaves, leaf, axis=0).T.astype(np.float32),
+        clt_scores=np.ones((n * leaf, 1), np.float32),
+        idxs=np.full(n, leaf), num_leaf=leaf,
+        shape3d=((n + 7) // 8) * 8)
+    gats = plant_gats_spg(convert.init_gats_spg_params(rng),
+                          descs.mean(0).astype(np.float32))
+    return db, gats
+
+
 def unit(x):
     """Rows of ``x`` scaled to unit length, as float32."""
     return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
@@ -1796,6 +2415,8 @@ def main() -> int:
     smoke.phase("11a SfM from images", smoke.sfm_images)
     smoke.phase("11b SfM at the reference scale from features",
                 smoke.sfm_features)
+    smoke.phase("12 training at full width", smoke.training)
+    smoke.phase("13 bf16 preset", smoke.bf16_preset)
     smoke.check("jax" not in sys.modules, "no JAX imported")
 
     smoke.results["failures"] = smoke.failures

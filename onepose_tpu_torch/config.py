@@ -2,9 +2,9 @@
 ``configs/``, ``+group=name`` overlays, dotted-key overrides and ``${...}``
 interpolation, over nested dicts with attribute access.
 
-The port's own copy of ``Config`` and ``load_config`` (with the helpers
-they call) from ``onepose_tpu/config.py``; it reads the same ``configs/``
-tree. ``yaml`` is imported where a file is read.
+The port's own copy of ``Config``, ``load_config`` and ``expand_multirun``
+(with the helpers they call) from ``onepose_tpu/config.py``; it reads the
+same ``configs/`` tree. ``yaml`` is imported where a file is read.
 """
 from __future__ import annotations
 
@@ -147,6 +147,41 @@ def load_config(overrides: Optional[Sequence[str]] = None,
     if wrapped.get("print_config"):
         print_config(wrapped)
     return wrapped
+
+
+def _split_sweep(value: str) -> List[str]:
+    """Split a sweep value on top-level commas (commas inside [] / {} / ()
+    belong to a single YAML value, e.g. ``milestones=[5,10]``)."""
+    parts, buf, depth = [], [], 0
+    for ch in value:
+        if ch in "[{(":
+            depth += 1
+        elif ch in ")}]":
+            depth -= 1
+        if ch == "," and depth == 0:
+            parts.append("".join(buf))
+            buf = []
+        else:
+            buf.append(ch)
+    parts.append("".join(buf))
+    return parts
+
+
+def expand_multirun(overrides: Sequence[str]) -> List[List[str]]:
+    """Hydra basic-sweeper surface (the reference's ``-m`` path feeding the
+    optuna return value of its ``train.py``): every
+    ``key=a,b,c`` override (non-``+``) with top-level commas becomes a sweep
+    axis; returns the cartesian product as a list of override lists."""
+    import itertools
+
+    axes: List[List[str]] = []
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"override must be key=value: {ov}")
+        key, value = ov.split("=", 1)
+        values = _split_sweep(value) if not key.startswith("+") else [value]
+        axes.append([f"{key}={v}" for v in values])
+    return [list(combo) for combo in itertools.product(*axes)]
 
 
 def print_config(cfg: Dict, indent: int = 0):

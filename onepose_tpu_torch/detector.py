@@ -84,7 +84,6 @@ class LocalFeatureObjectDetector:
         self.sp_config.update(CONFS["superpoint"]["conf"])
         self.sp_config.update(sp_config or {})
         self.sp_config["max_keypoints"] = max_keypoints
-        superpoint.check_fp32(self.sp_config)
         self.sg_config = superglue.resolve_config(sg_config)
         self.sp_model = sp_model.to(self.device).eval()
         self.sg_model = sg_model.to(self.device).eval()

@@ -11,9 +11,10 @@ own copies of the JAX package's host-only modules.
     python -m onepose_tpu_torch.inference +experiment=test_sample
 
 The config key ``device`` names the torch device (default ``cuda``; there
-is no quiet CPU fallback). fp32 is the port's only numeric mode:
-``compute_dtype`` or ``stem_dtype`` set to bfloat16 raises
-NotImplementedError.
+is no quiet CPU fallback). SuperPoint defaults as in the root entry: a
+bf16 direct stem and a bf16 encoder (``superpoint.entry_preset``);
+``stem_dtype=float32`` selects the fp32 encoder and the stem kernel, and
+``compute_dtype`` or ``stem`` may be set alone.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ def inference_core(cfg, data_root, seq_dir, sfm_model_dir, sp_model,
     from onepose_tpu_torch import pipeline
     from onepose_tpu_torch.datasets import anno
     from onepose_tpu_torch.evaluators import Evaluator, record_eval_result
+    from onepose_tpu_torch.models import superpoint
     from onepose_tpu_torch.runtime.loader import PrefetchLoader
     from onepose_tpu_torch.sfm.extract import CONFS, load_gray
     from onepose_tpu_torch.utils import path_utils
@@ -68,8 +70,7 @@ def inference_core(cfg, data_root, seq_dir, sfm_model_dir, sp_model,
     # use, not the model's defaults; the static keypoint budget from cfg
     sp_conf = dict(CONFS[cfg.network.detection]["conf"])
     sp_conf["max_keypoints"] = cfg.max_keypoints
-    for key in ("compute_dtype", "stem_dtype"):
-        sp_conf[key] = str(cfg.get(key, "float32"))
+    sp_conf.update(superpoint.entry_preset(cfg))
     device = torch.device(cfg.get("device", "cuda"))
     pipe = pipeline.PosePipeline(
         sp_model, gats_model, db, sp_config=sp_conf,

@@ -14,9 +14,9 @@ frames to ``demo_video.mp4``.
         data_root=<capture_root> data_seq=<seq>
 
 The config key ``device`` names the torch device (default ``cuda``; there
-is no quiet CPU fallback). fp32 is the port's only numeric mode:
-``compute_dtype`` or ``stem_dtype`` set to bfloat16 raises
-NotImplementedError. :func:`demo_frames` takes frames held in memory; the
+is no quiet CPU fallback). SuperPoint defaults as in the root entry: a
+bf16 direct stem and a bf16 encoder (``superpoint.entry_preset``);
+``stem_dtype=float32`` selects the fp32 encoder and the stem kernel. :func:`demo_frames` takes frames held in memory; the
 CLI reads the sequence's PNGs.
 """
 from __future__ import annotations
@@ -147,6 +147,7 @@ def inference_core(cfg, noises: Optional[Iterable[DemoNoise]] = None):
     from onepose_tpu_torch.detector import LocalFeatureObjectDetector
     from onepose_tpu_torch.feature_matching_object_detector import (
         sample_ref_views)
+    from onepose_tpu_torch.models import superpoint
     from onepose_tpu_torch.sfm.extract import CONFS, load_gray
     from onepose_tpu_torch.tracker import BATracker
     from onepose_tpu_torch.utils import (geometry as geo, model_io,
@@ -171,11 +172,10 @@ def inference_core(cfg, noises: Optional[Iterable[DemoNoise]] = None):
     box3d = np.loadtxt(path_utils.get_3d_box_path(data_root))
     K_full, _ = geo.get_K(path_utils.get_intrin_full_path(seq_dir))
 
-    # the extract conf (nms_radius 3), as the reference's demo uses; fp32
+    # the extract conf (nms_radius 3), as the reference's demo uses
     sp_conf = dict(CONFS[cfg.network.detection]["conf"])
     sp_conf["max_keypoints"] = cfg.max_keypoints
-    for key in ("compute_dtype", "stem_dtype"):
-        sp_conf[key] = str(cfg.get(key, "float32"))
+    sp_conf.update(superpoint.entry_preset(cfg))
     device = torch.device(cfg.get("device", "cuda"))
     pipe = pipeline.PosePipeline(
         sp_model, gats_model, db, sp_config=sp_conf,

@@ -169,6 +169,32 @@ def gats_spg_from_state_dict(sd: Mapping) -> GATsSPG:
     return model.eval()
 
 
+def gats_spg_to_state_dict(model: GATsSPG) -> Dict[str, torch.Tensor]:
+    """:class:`GATsSPG` → reference ``GATsSPG.ckpt`` keys (without the
+    ``matcher.`` prefix; Conv1d weights ``[out, in, 1]``), the inverse of
+    :func:`gats_spg_from_state_dict`."""
+    sd = model.state_dict()
+    out = {}
+
+    def conv1d(ref: str, prefix: str):
+        out[f"{ref}.weight"] = sd[f"{prefix}.weight"].detach().cpu()[..., None]
+        out[f"{ref}.bias"] = sd[f"{prefix}.bias"].detach().cpu()
+
+    conv1d("final_proj", "final_proj")
+    for i in range(len(model.gnn)):
+        ref, base = f"gnn.layers.{i}", f"gnn.{i}"
+        if i % 3 == 0:
+            out[f"{ref}.W"] = sd[f"{base}.W"].detach().cpu()
+            out[f"{ref}.a"] = sd[f"{base}.a"].detach().cpu()
+            continue
+        for j, name in enumerate(("proj_q", "proj_k", "proj_v")):
+            conv1d(f"{ref}.attn.proj.{j}", f"{base}.{name}")
+        conv1d(f"{ref}.attn.merge", f"{base}.merge")
+        conv1d(f"{ref}.mlp.0", f"{base}.mlp0")
+        conv1d(f"{ref}.mlp.3", f"{base}.mlp1")
+    return out
+
+
 def superglue_from_state_dict(sd: Mapping) -> SuperGlue:
     """Reference ``superglue_{indoor,outdoor}.pth`` keys → :class:`SuperGlue`,
     through the JAX layout (the encoder's and the GNN's depth read from

@@ -11,6 +11,11 @@ belongs to head ``c % num_heads`` (the reference's ``view(b, dim, heads,
 n)`` split); a contiguous split would change the model under converted
 weights. The JAX package's block-masked merged-head form is a TPU layout
 choice; here each head is computed on its own.
+
+``forward`` and ``forward_match_only`` run under ``torch.no_grad`` for
+inference; training differentiates ``forward_train`` (the same
+``gnn_body`` and dual softmax), as the JAX package differentiates its
+``forward``.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from onepose_tpu_torch.ops.match import dual_softmax_argmax
 
@@ -32,6 +38,9 @@ DEFAULT_CONFIG = {
     "additional": False,
     "with_linear_transform": False,
     "compute_dtype": "float32",
+    # recompute the GATs and attention steps in the backward pass
+    # (torch.utils.checkpoint): activation memory for compute
+    "remat": False,
 }
 
 
@@ -178,21 +187,35 @@ def resolve_config(config: Optional[dict]) -> dict:
 
 def gnn_body(model: GATsSPG, data: Dict[str, torch.Tensor], cfg: dict):
     """The GNN stack + final projection + L2 norm → (mdesc2d [B,N1,D],
-    mdesc3d [B,N2,D])."""
-    d2q = data["descriptors2d_query"].float()
-    d3db = data["descriptors3d_db"].float()
-    d2db = data["descriptors2d_db"].float()
+    mdesc3d [B,N2,D]), in the dtype of the model's parameters (fp32; an
+    fp64 copy of a model gives a reference)."""
+    dtype = model.final_proj.weight.dtype
+    d2q = data["descriptors2d_query"].to(dtype)
+    d3db = data["descriptors3d_db"].to(dtype)
+    d2db = data["descriptors2d_db"].to(dtype)
+
+    def gats_step(p, d2db_, d3db_):
+        return gats_layer(p, d2db_, d3db_, cfg)
+
+    def attn_step(p, x, source):
+        return attention_propagation(p, x, source, cfg["num_heads"])
+
+    if cfg["remat"] and torch.is_grad_enabled():
+        def remat(fn):
+            return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+        gats_step, attn_step = remat(gats_step), remat(attn_step)
+
     for i, p in enumerate(model.gnn):
         kind = i % 3
         if kind == 0:
-            d3db = gats_layer(p, d2db, d3db, cfg)
+            d3db = gats_step(p, d2db, d3db)
         elif kind == 1:   # self
-            delta0 = attention_propagation(p, d2q, d2q, cfg["num_heads"])
-            delta1 = attention_propagation(p, d3db, d3db, cfg["num_heads"])
+            delta0 = attn_step(p, d2q, d2q)
+            delta1 = attn_step(p, d3db, d3db)
             d2q, d3db = d2q + delta0, d3db + delta1
         else:             # cross
-            delta0 = attention_propagation(p, d2q, d3db, cfg["num_heads"])
-            delta1 = attention_propagation(p, d3db, d2q, cfg["num_heads"])
+            delta0 = attn_step(p, d2q, d3db)
+            delta1 = attn_step(p, d3db, d2q)
             d2q, d3db = d2q + delta0, d3db + delta1
     return _unit(model.final_proj(d2q)), _unit(model.final_proj(d3db))
 
@@ -221,24 +244,29 @@ def _mutual_threshold(indices0, max0, indices1, max1, match_threshold,
     return matches0, matches1, mscores0, mscores1
 
 
+def dual_softmax_conf(mdesc0: torch.Tensor, mdesc1: torch.Tensor,
+                      scale_factor: float) -> torch.Tensor:
+    """The [B, N1, N2] dual-softmax confidence matrix."""
+    s = torch.einsum("bnd,bmd->bnm", mdesc0, mdesc1) / scale_factor
+    return torch.softmax(s, dim=1) * torch.softmax(s, dim=2)
+
+
 def dual_softmax_match(mdesc0: torch.Tensor, mdesc1: torch.Tensor,
                        scale_factor: float, match_threshold: float,
                        mask0: Optional[torch.Tensor] = None,
                        mask1: Optional[torch.Tensor] = None) -> MatchOutput:
     """Dual-softmax scores + mutual-max + threshold matching, the whole
     [B, N1, N2] conf matrix in memory (plain torch)."""
-    s = torch.einsum("bnd,bmd->bnm", mdesc0, mdesc1) / scale_factor
-    conf = torch.softmax(s, dim=1) * torch.softmax(s, dim=2)
+    conf = dual_softmax_conf(mdesc0, mdesc1, scale_factor)
     out = _mutual_threshold(conf.argmax(2), conf.amax(2), conf.argmax(1),
                             conf.amax(1), match_threshold, mask0, mask1)
     return MatchOutput(*out, conf)
 
 
-@torch.no_grad()
-def forward(model: GATsSPG, data: Dict[str, torch.Tensor],
-            config: Optional[dict] = None) -> MatchOutput:
+def forward_train(model: GATsSPG, data: Dict[str, torch.Tensor],
+                  config: Optional[dict] = None) -> MatchOutput:
     """Match 2D query keypoints against the 3D point DB, with the conf
-    matrix.
+    matrix, carrying gradients (``remat`` checkpoints the GNN steps).
 
     data ([B, N, D] tokens): descriptors2d_query [B, N1, D],
     descriptors3d_db [B, N2, D], descriptors2d_db [B, N2*num_leaf, D], and
@@ -248,6 +276,13 @@ def forward(model: GATsSPG, data: Dict[str, torch.Tensor],
     return dual_softmax_match(m0, m1, cfg["scale_factor"],
                               cfg["match_threshold"], data.get("mask2d"),
                               data.get("mask3d"))
+
+
+@torch.no_grad()
+def forward(model: GATsSPG, data: Dict[str, torch.Tensor],
+            config: Optional[dict] = None) -> MatchOutput:
+    """:func:`forward_train` without gradients, for inference."""
+    return forward_train(model, data, config)
 
 
 @torch.no_grad()

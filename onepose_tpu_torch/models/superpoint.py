@@ -7,10 +7,14 @@ the lower index winning ties, and bilinear descriptor sampling. Every
 image yields exactly ``max_keypoints`` slots with a validity mask.
 
 Images come in NHWC ``[B, H, W, 1]`` as in the JAX package; the encoder
-runs NCHW inside. The stem (conv1a, conv1b, pool) goes through
-``ops.stem.fused_stem``: the hand-written kernel on a CUDA tensor, its
-plain version on a CPU one. The JAX package's polyphase stem and two-stage
-top-k are TPU reformulations of the same math and are not ported.
+runs NCHW inside. In fp32 (the default) the stem (conv1a, conv1b, pool)
+goes through ``ops.stem.fused_stem``: the hand-written kernel on a CUDA
+tensor, its plain version on a CPU one. ``stem_dtype="bfloat16"`` runs the
+stem's convolutions in bf16, and ``compute_dtype="bfloat16"`` the whole
+encoder, with ``F.conv2d`` as the JAX package runs XLA convolutions there
+(no Pallas kernel computes in bf16). The JAX package's polyphase stem and
+two-stage top-k are TPU reformulations of the same math and are not
+ported: ``stem="polyphase"`` computes the direct stem.
 """
 from __future__ import annotations
 
@@ -28,10 +32,17 @@ DEFAULT_CONFIG = {
     "keypoint_threshold": 0.005,
     "max_keypoints": 1024,
     "remove_borders": 4,
-    # the only numeric mode of the port so far; bfloat16 raises
+    # "bfloat16": the encoder in bf16; the detector softmax and the
+    # descriptor normalization stay fp32
     "compute_dtype": "float32",
+    # "bfloat16": conv1a and conv1b in bf16, the rest at compute_dtype
     "stem_dtype": "float32",
+    # "polyphase" (the JAX default, a TPU layout) and "direct" compute the
+    # same stem here
+    "stem": "polyphase",
 }
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+STEMS = ("polyphase", "direct")
 
 # (name, in, out); "pool" entries mark 2x2 max-pool boundaries
 ENCODER_CHANNELS = [
@@ -66,44 +77,99 @@ class SuperPoint(nn.Module):
         self.convDb = nn.Conv2d(256, descriptor_dim, 1)
 
 
-def check_fp32(config: dict) -> None:
-    """fp32 is the port's only numeric mode; refuse the others loudly."""
-    for key in ("compute_dtype", "stem_dtype"):
-        if str(config.get(key, "float32")) != "float32":
-            raise NotImplementedError(
-                f"{key}={config[key]}: the PyTorch port runs fp32 only; "
-                "bf16 is ROADMAP Queue 1 item 7 (behind the stem-dtype gate)")
+def _dtype(config: dict, key: str) -> torch.dtype:
+    name = str(config.get(key, "float32"))
+    if name not in DTYPES:
+        raise ValueError(f"{key}={name}: the port computes SuperPoint in "
+                         f"{' or '.join(DTYPES)}")
+    return DTYPES[name]
+
+
+def check_config(config: dict) -> None:
+    """Refuse a dtype or stem that the port does not have."""
+    _dtype(config, "compute_dtype")
+    _dtype(config, "stem_dtype")
+    if config.get("stem", "polyphase") not in STEMS:
+        raise ValueError(f"stem={config['stem']}: one of {STEMS}")
+
+
+def entry_preset(cfg) -> dict:
+    """SuperPoint's dtypes and stem in the eval entries, as the root
+    ``inference.py`` and ``inference_demo.py`` set them: a bf16 direct stem
+    and a bf16 encoder by default; ``stem_dtype=float32`` alone selects the
+    polyphase stem and an fp32 encoder; each key may also be set alone."""
+    stem_dtype = str(cfg.get("stem_dtype", "bfloat16"))
+    bf16 = stem_dtype == "bfloat16"
+    return {"stem_dtype": stem_dtype,
+            "stem": str(cfg.get("stem", "direct" if bf16 else "polyphase")),
+            "compute_dtype": str(cfg.get("compute_dtype",
+                                         "bfloat16" if bf16 else "float32"))}
 
 
 def _hwio(conv: nn.Conv2d) -> torch.Tensor:
     return conv.weight.permute(2, 3, 1, 0).contiguous()
 
 
-def dense_heads(model: SuperPoint, images: torch.Tensor):
+def _conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+          padding: int) -> torch.Tensor:
+    """A convolution in x's dtype: in fp32 with the bias inside the
+    product (``nn.Conv2d``'s), in bf16 with the bias added after the
+    product is rounded to bf16 (XLA's ``conv + b``)."""
+    if x.dtype == torch.float32:
+        return F.conv2d(x, weight, bias, padding=padding)
+    return (F.conv2d(x, weight.to(x.dtype), padding=padding)
+            + bias.to(x.dtype)[:, None, None])
+
+
+def _relu_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    return F.relu(_conv(x, conv.weight, conv.bias, conv.padding[0]))
+
+
+def dense_heads(model: SuperPoint, images: torch.Tensor,
+                compute_dtype: str = "float32",
+                stem_dtype: str = "float32", stem: str = "polyphase"):
     """Shared encoder + both heads.
 
     images [B, H, W, 1] in [0, 1], H and W divisible by 8 → (scores
-    [B, H, W], desc_coarse [B, H/8, W/8, D] unit norm)."""
-    x = fused_stem(images.float(), _hwio(model.conv1a), model.conv1a.bias,
-                   _hwio(model.conv1b), model.conv1b.bias)
-    x = x.permute(0, 3, 1, 2)
+    [B, H, W], desc_coarse [B, H/8, W/8, D] unit norm), both fp32.
+
+    The JAX package's ``dense_heads`` modes: all fp32 (the stem kernel);
+    ``stem_dtype="bfloat16"`` under an fp32 encoder (the stem's convs and
+    pool in bf16, cast to fp32); ``compute_dtype="bfloat16"`` (weights and
+    images in bf16, the stem kernel skipped, the detector logits and the
+    descriptor conv cast to fp32 before the softmax and the norm)."""
+    cfg = {"compute_dtype": compute_dtype, "stem_dtype": stem_dtype,
+           "stem": stem}
+    check_config(cfg)
+    cdt = _dtype(cfg, "compute_dtype")
+    sdt = _dtype(cfg, "stem_dtype") if cdt == torch.float32 else cdt
+    if sdt == torch.float32:
+        x = fused_stem(images.float(), _hwio(model.conv1a),
+                       model.conv1a.bias, _hwio(model.conv1b),
+                       model.conv1b.bias).permute(0, 3, 1, 2)
+    else:   # the direct stem in bf16
+        x = images.permute(0, 3, 1, 2).to(sdt)
+        x = _relu_conv(_relu_conv(x, model.conv1a), model.conv1b)
+        x = F.max_pool2d(x, 2).to(cdt)
     for entry in ENCODER_CHANNELS[3:]:
         if entry[0] == "pool":
             x = F.max_pool2d(x, 2)
         else:
-            x = F.relu(getattr(model, entry[0])(x))
+            x = _relu_conv(x, getattr(model, entry[0]))
 
     # both heads' first convs read the same trunk output: one 128→512 conv
     w_heads = torch.cat([model.convPa.weight, model.convDa.weight])
     b_heads = torch.cat([model.convPa.bias, model.convDa.bias])
-    heads = F.relu(F.conv2d(x, w_heads, b_heads, padding=1))
+    heads = F.relu(_conv(x, w_heads, b_heads, 1))
     cpa, cda = heads[:, :256], heads[:, 256:]
+    logits = _conv(cpa, model.convPb.weight, model.convPb.bias, 0)
+    desc = _conv(cda, model.convDb.weight, model.convDb.bias, 0)
 
     # detector head: 65-channel softmax, dustbin dropped, 8x depth-to-space
-    probs = torch.softmax(model.convPb(cpa), dim=1)[:, :-1]
+    probs = torch.softmax(logits.float(), dim=1)[:, :-1]
     scores = F.pixel_shuffle(probs, 8)[:, 0]
 
-    desc = model.convDb(cda)
+    desc = desc.float()
     desc = desc / torch.clamp(
         torch.linalg.vector_norm(desc, dim=1, keepdim=True), min=1e-12)
     return scores, desc.permute(0, 2, 3, 1)
@@ -203,8 +269,8 @@ def extract(model: SuperPoint, images: torch.Tensor,
     """images [B, H, W, 1] in [0, 1] → static-shape keypoints."""
     cfg = dict(DEFAULT_CONFIG)
     cfg.update(config or {})
-    check_fp32(cfg)
     if cfg["max_keypoints"] is None or cfg["max_keypoints"] < 0:
         raise ValueError("SuperPoint needs a static max_keypoints budget")
-    scores, desc = dense_heads(model, images)
+    scores, desc = dense_heads(model, images, cfg["compute_dtype"],
+                               cfg["stem_dtype"], cfg["stem"])
     return select_keypoints(simple_nms(scores, cfg["nms_radius"]), desc, cfg)

@@ -125,7 +125,6 @@ class PosePipeline:
         pin_fp32()
         self.sp_config = dict(superpoint.DEFAULT_CONFIG)
         self.sp_config.update(sp_config or {})
-        superpoint.check_fp32(self.sp_config)
         self.gats_config = gats_spg.resolve_config(gats_config)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():

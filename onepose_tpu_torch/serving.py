@@ -13,10 +13,11 @@ window) and ``start`` / ``submit`` / ``stop`` (a worker thread assembles
 batches by size or latency and resolves futures). All three run the one
 serve step, :func:`serve_step`.
 
-On a card the staging thread uploads from pinned host memory on its own
-stream and records an event; the launching thread's stream waits on that
-event before the serve step reads the batch, and the batch's tensors are
-marked as used on that stream so that their memory is not reused early.
+On a card the staging thread (``runtime/loader.py``'s ``stage_ahead`` and
+``DeviceStager``) uploads from pinned host memory on its own stream and
+records an event; the launching thread's stream waits on that event
+before the serve step reads the batch, and the batch's tensors are marked
+as used on that stream so that their memory is not reused early.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from onepose_tpu_torch.models import gats_spg, superpoint
 from onepose_tpu_torch.ops import epnp
 from onepose_tpu_torch.ops.precision import pin_fp32
 from onepose_tpu_torch.pipeline import PoseOutput, frame_step
+from onepose_tpu_torch.runtime import loader
 
 DB_KEYS = ("keypoints3d", "descriptors3d", "descriptors2d_db", "mask3d")
 DESCRIPTOR_KEYS = ("descriptors3d", "descriptors2d_db")
@@ -72,14 +74,11 @@ class PoseRequest(NamedTuple):
 
 
 class _Staged(NamedTuple):
-    """An assembled batch: host arrays, or device tensors with the event
-    that marks their upload done (None where nothing is pending)."""
-    images: object      # [B, H, W, 1]
-    Ks: object          # [B, 3, 3]
-    obj_idx: object     # [B]
+    """An assembled batch: images [B, H, W, 1], Ks [B, 3, 3] and obj_idx
+    [B] on the host, or on the card with the event of their upload."""
+    arrays: loader.Staged
     n_real: int
     uniform: bool
-    ready: Optional[torch.cuda.Event]
 
 
 class PoseServer:
@@ -144,7 +143,6 @@ class PoseServer:
 
         self.sp_config = dict(superpoint.DEFAULT_CONFIG)
         self.sp_config.update(sp_config or {})
-        superpoint.check_fp32(self.sp_config)
         self.gats_config = gats_spg.resolve_config(gats_config)
         self.batch_size = batch_size
         self.max_latency_s = max_latency_s
@@ -152,8 +150,7 @@ class PoseServer:
         self.num_hypotheses = num_hypotheses
         self.refine_iters = refine_iters
         self.generator = torch.Generator(device=device).manual_seed(seed)
-        self._upload_stream = (torch.cuda.Stream(device)
-                               if device.type == "cuda" else None)
+        self._stager = loader.DeviceStager(device)
 
         self._queue: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
@@ -179,37 +176,24 @@ class PoseServer:
     def _assemble(self, requests: Sequence[PoseRequest],
                   to_device: bool) -> _Staged:
         """Pad to the static batch size and, with ``to_device``, start the
-        upload on the upload stream."""
+        upload (``loader.DeviceStager``: pinned memory, a side stream)."""
         images, Ks, obj_idx, n_real = self._encode_host(requests)
         uniform = bool((obj_idx == obj_idx[0]).all())
-        ready = None
-        if to_device and self._upload_stream is not None:
-            with torch.cuda.device(self.device), \
-                    torch.cuda.stream(self._upload_stream):
-                images, Ks, obj_idx = (
-                    torch.from_numpy(a).pin_memory().to(self.device,
-                                                        non_blocking=True)
-                    for a in (images, Ks, obj_idx))
-                ready = torch.cuda.Event()
-                ready.record(self._upload_stream)
-        return _Staged(images, Ks, obj_idx, n_real, uniform, ready)
+        arrays = {"images": images, "Ks": Ks, "obj_idx": obj_idx}
+        staged = (self._stager(arrays) if to_device else loader.Staged(
+            {k: torch.from_numpy(v) for k, v in arrays.items()}, None))
+        return _Staged(staged, n_real, uniform)
 
     def _launch(self, staged: _Staged,
                 noise: Optional[epnp.RansacNoise] = None) -> PoseOutput:
         """Run the serve step on one assembled batch, on the calling
         thread's current stream. RANSAC's noise is ``noise`` when given,
         else drawn from the server's generator."""
-        images, Ks, obj_idx = staged.images, staged.Ks, staged.obj_idx
-        if staged.ready is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(staged.ready)
-            for t in (images, Ks, obj_idx):
-                t.record_stream(stream)
+        arrays = {k: t.to(self.device)
+                  for k, t in staged.arrays.wait().items()}
         return serve_step(
             self.sp_model, self.gats_model, self.db_stack,
-            torch.as_tensor(obj_idx, device=self.device),
-            torch.as_tensor(images, device=self.device),
-            torch.as_tensor(Ks, device=self.device),
+            arrays["obj_idx"], arrays["images"], arrays["Ks"],
             self.sp_config, self.gats_config, uniform=staged.uniform,
             noise=noise, generator=None if noise is not None
             else self.generator, reproj_threshold=self.reproj_threshold,
@@ -252,37 +236,18 @@ class PoseServer:
         N-k overlap."""
         chunks = [list(requests[i:i + self.batch_size])
                   for i in range(0, len(requests), self.batch_size)]
-        if not chunks:
-            return []
-        staged: "queue.Queue" = queue.Queue(maxsize=depth)
-        errors: List[BaseException] = []
-
-        def stager():
-            try:
-                for chunk in chunks:
-                    staged.put(self._assemble(chunk, to_device=True))
-            except Exception as e:  # re-raised by the launching thread
-                errors.append(e)
-            finally:
-                staged.put(None)
-
-        t = threading.Thread(target=stager, daemon=True)
-        t.start()
         results: List[dict] = []
         pending: List = []
         with self._on_device():
-            while True:
-                item = staged.get()
-                if item is None:
-                    break
+            for item in loader.stage_ahead(
+                    iter(chunks),
+                    lambda chunk: self._assemble(chunk, to_device=True),
+                    depth):
                 pending.append((self._launch(item), item.n_real))
                 if len(pending) > max_in_flight:
                     results.extend(self._fetch(*pending.pop(0)))
             for out, n_real in pending:
                 results.extend(self._fetch(out, n_real))
-        t.join()
-        if errors:
-            raise errors[0]
         return results
 
     def _on_device(self):

@@ -1,5 +1,6 @@
 """Visualization for the port: the demo's frame rendering (``reproj``,
-``draw_3d_box``, ``save_demo_image``, ``make_video``) and the scene export,
+``draw_3d_box``, ``save_demo_image``, ``make_video``), training's match
+figures (``draw_matches``) and the scene export,
 one self-contained HTML file with an interactive 3D view of an object's
 points and the estimated cameras.
 
@@ -60,6 +61,38 @@ def save_demo_image(pose_pred: np.ndarray, K: np.ndarray,
     os.makedirs(osp.dirname(save_path) or ".", exist_ok=True)
     cv2.imwrite(save_path, img)
     return img
+
+
+def draw_matches(img0: np.ndarray, kpts0: np.ndarray, img1: np.ndarray,
+                 kpts1: np.ndarray, confidence: Optional[np.ndarray] = None,
+                 save_path: Optional[str] = None) -> np.ndarray:
+    """Side-by-side match visualization with confidence-colored lines."""
+    import cv2
+
+    def to_bgr(im):
+        im = np.asarray(im)
+        if im.dtype != np.uint8:
+            im = (np.clip(im, 0, 1) * 255).astype(np.uint8)
+        if im.ndim == 2:
+            im = cv2.cvtColor(im, cv2.COLOR_GRAY2BGR)
+        return im
+
+    im0, im1 = to_bgr(img0), to_bgr(img1)
+    h = max(im0.shape[0], im1.shape[0])
+    canvas = np.zeros((h, im0.shape[1] + im1.shape[1], 3), np.uint8)
+    canvas[: im0.shape[0], : im0.shape[1]] = im0
+    canvas[: im1.shape[0], im0.shape[1]:] = im1
+    off = im0.shape[1]
+    conf = confidence if confidence is not None else np.ones(len(kpts0))
+    for (x0, y0), (x1, y1), c in zip(
+            np.asarray(kpts0), np.asarray(kpts1), conf):
+        col = (0, int(255 * float(c)), int(255 * (1 - float(c))))
+        cv2.line(canvas, (int(x0), int(y0)), (int(x1) + off, int(y1)),
+                 col, 1)
+    if save_path:
+        os.makedirs(osp.dirname(save_path) or ".", exist_ok=True)
+        cv2.imwrite(save_path, canvas)
+    return canvas
 
 
 def make_video(image_dir: str, output_path: str, fps: int = 24):

@@ -324,9 +324,11 @@ def test_demo_matches_the_root_script(world, no_match_threshold,
 
 
 def test_demo_cli_refuses_bf16(world):
-    with pytest.raises(NotImplementedError, match="fp32 only"):
+    """The demo computes SuperPoint in bf16 by default now; what it refuses
+    is a dtype the port does not have."""
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
         inference_demo.inference_core(_cli_config(
-            world, stem_dtype="bfloat16"))
+            world, stem_dtype="float16"))
 
 
 def test_demo_defaults_to_the_card(world):

@@ -559,3 +559,131 @@ def test_video2img_equal(tmp_path):
     assert (tv2i.video2img(video, str(tmp_path / "t"), 2)
             == jv2i.video2img(video, str(tmp_path / "j"), 2) == 4)
     assert _tree(str(tmp_path / "t")) == _tree(str(tmp_path / "j"))
+
+
+# --------------------------------------------------------------------------
+# the training slice's host copies
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("overrides", [
+    ["model.lr=1e-3,5e-4", "+experiment=train_GATsSPG", "seed=1,2,3"],
+    ["model.milestones=[5,10],[1]", "trainer.max_epochs=2"], []])
+def test_expand_multirun_equal(overrides):
+    assert (tconfig.expand_multirun(overrides)
+            == jconfig.expand_multirun(overrides))
+
+
+def test_stage_ahead_equal():
+    from onepose_tpu_torch.runtime.loader import DeviceStager
+
+    def stage(b):
+        return b * 2
+
+    batches = [np.full(3, i) for i in range(5)]
+    got = list(tloader.stage_ahead(iter(batches), stage))
+    ref = list(jloader.stage_ahead(iter(batches), stage))
+    assert [g.tolist() for g in got] == [r.tolist() for r in ref]
+
+    def broken():
+        yield np.zeros(1)
+        raise KeyError("source")
+
+    for mod in (tloader, jloader):
+        with pytest.raises(KeyError, match="source"):
+            list(mod.stage_ahead(broken(), stage))
+    staged = list(tloader.stage_ahead(
+        iter([{"a": np.arange(4)}]), DeviceStager("cpu")))
+    assert staged[0].ready is None
+    np.testing.assert_array_equal(staged[0].wait()["a"].numpy(),
+                                  np.arange(4))
+
+
+def test_normalized_dataset_equal(tmp_path):
+    cv2 = pytest.importorskip("cv2")
+    from onepose_tpu.datasets.normalized_dataset import \
+        NormalizedDataset as JDs
+    from onepose_tpu_torch.datasets.normalized_dataset import \
+        NormalizedDataset as TDs
+
+    rng = np.random.default_rng(18)
+    paths = []
+    for i in range(3):
+        paths.append(str(tmp_path / f"{i}.png"))
+        cv2.imwrite(paths[-1], rng.integers(0, 256, (24, 32), np.uint8))
+    t, j = TDs(paths, resize_hw=(16, 20)), JDs(paths, resize_hw=(16, 20))
+    assert len(t) == len(j) == 3
+    for i in range(3):
+        g, r = t[i], j[i]
+        assert g["path"] == r["path"]
+        np.testing.assert_array_equal(g["image"], r["image"])
+        np.testing.assert_array_equal(g["size"], r["size"])
+    for (gb, gc, gn), (rb, rc, rn) in zip(t.loader(2), j.loader(2)):
+        np.testing.assert_array_equal(gb, rb)
+        assert (gc, gn) == (rc, rn)
+
+
+def test_draw_matches_equal(tmp_path):
+    pytest.importorskip("cv2")
+    rng = np.random.default_rng(19)
+    img0 = rng.uniform(0, 1, (40, 50)).astype(np.float32)
+    img1 = rng.integers(0, 256, (30, 60), np.uint8)
+    k0, k1 = rng.uniform(0, 30, (6, 2)), rng.uniform(0, 30, (6, 2))
+    conf = rng.uniform(0, 1, 6)
+    got = tvis.draw_matches(img0, k0, img1, k1, conf,
+                            save_path=str(tmp_path / "t" / "m.png"))
+    ref = jvis.draw_matches(img0, k0, img1, k1, conf,
+                            save_path=str(tmp_path / "j" / "m.png"))
+    np.testing.assert_array_equal(got, ref)
+    assert ((tmp_path / "t" / "m.png").read_bytes()
+            == (tmp_path / "j" / "m.png").read_bytes())
+
+
+def test_classification_callbacks_equal(tmp_path):
+    from onepose_tpu.train import callbacks as jcb
+    from onepose_tpu_torch.train import callbacks as tcb
+
+    assert tcb.MATCH_CLASS_NAMES == jcb.MATCH_CLASS_NAMES
+    rng = np.random.default_rng(20)
+    hm_t = tcb.ClassificationHeatmaps(tcb.MATCH_CLASS_NAMES)
+    hm_j = jcb.ClassificationHeatmaps(jcb.MATCH_CLASS_NAMES)
+    for _ in range(3):
+        args = (rng.integers(-1, 30, 50), rng.uniform(size=50) < 0.8,
+                rng.uniform(0, 64, (50, 2)), rng.uniform(0, 64, (30, 2)),
+                rng.uniform(size=30) < 0.9)
+        got = tcb.match_classification_labels(*args)
+        ref = jcb.match_classification_labels(*args)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g, r)
+        hm_t.update(*got)
+        hm_j.update(*ref)
+    np.testing.assert_array_equal(hm_t.confusion_matrix(),
+                                  hm_j.confusion_matrix())
+    assert hm_t.emit(epoch=1) == hm_j.emit(epoch=1)
+
+
+def test_param_norms_and_logger_equal(tmp_path):
+    import jax
+
+    from onepose_tpu.models import gats_spg as jgats
+    from onepose_tpu.train import callbacks as jcb
+    from onepose_tpu.train.logging import MetricLogger as JLogger
+    from onepose_tpu_torch.models import convert
+    from onepose_tpu_torch.train import callbacks as tcb
+    from onepose_tpu_torch.train.logging import MetricLogger as TLogger
+
+    params = jgats.init_params(jax.random.PRNGKey(0),
+                               {"num_blocks": 1, "descriptor_dim": 32})
+    model = convert.gats_spg_from_jax(jax.tree.map(np.asarray, params))
+    got, ref = tcb.param_norms(model), jcb.param_norms(params)
+    assert sorted(got) == sorted(ref) == ["params_norm/final_proj",
+                                          "params_norm/gnn"]
+    for k in ref:
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-6)
+    for name, cls in (("t", TLogger), ("j", JLogger)):
+        logger = cls(str(tmp_path / name), use_tensorboard=False)
+        watcher = (tcb if name == "t" else jcb).ModelWatcher(logger, 2)
+        assert watcher.step(1, model if name == "t" else params) is None
+        logger.log(3, {"epoch": 0, "train_loss": 0.5, "lr": 1e-3})
+        logger.close()
+    assert ((tmp_path / "t" / "metrics.jsonl").read_text()
+            == (tmp_path / "j" / "metrics.jsonl").read_text())

@@ -23,6 +23,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+assert "optax" not in sys.modules and "orbax" not in sys.modules
 assert "onepose_tpu" not in sys.modules
 assert "triton" not in sys.modules
 print(len(names))
@@ -82,11 +83,45 @@ def test_port_never_imports_the_jax_package():
             "sfm/triangulate.py", "sfm/global_ba.py", "sfm/postprocess.py",
             "sfm/runner.py", "runtime/native.py", "utils/colmap_db.py",
             "datasets/merge.py", "run.py", "parse_scanned_data.py",
-            "video2img.py", "utils/hdf5.py"} <= rel
+            "video2img.py", "utils/hdf5.py", *TRAINING_MODULES} <= rel
     files += [os.path.join(REPO, "chip_smoke.py"),
               os.path.join(REPO, "tests", "test_torch_cuda.py")]
     bad = {os.path.relpath(f, REPO): _jax_package_imports(f) for f in files}
     assert not {k: v for k, v in bad.items() if v}
+
+
+# the training slice's modules
+TRAINING_MODULES = ("train/loss.py", "train/trainer.py", "train/callbacks.py",
+                    "train/logging.py", "train/entry.py", "train/__main__.py",
+                    "datasets/gats_dataset.py",
+                    "datasets/normalized_dataset.py")
+
+
+def test_training_modules_import_no_jax_optax_orbax():
+    """No import of jax, optax, orbax or the JAX package anywhere in the
+    training slice's modules, at any depth of the code."""
+    banned = ("jax", "optax", "orbax", "onepose_tpu")
+    for rel in TRAINING_MODULES:
+        path = os.path.join(REPO, "onepose_tpu_torch", rel)
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            for name in names:
+                assert not any(name == b or name.startswith(b + ".")
+                               for b in banned), (rel, node.lineno, name)
+
+
+def test_train_entry_runs_as_a_module():
+    """``python -m onepose_tpu_torch.train`` reaches the entry's main (a
+    config with no ``type`` stops it at the dispatch)."""
+    out = subprocess.run(
+        [sys.executable, "-m", "onepose_tpu_torch.train", "type=none"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=_clean_env())
+    assert out.returncode != 0 and "KeyError: 'none'" in out.stderr, \
+        out.stderr[-2000:]
 
 
 def test_import_scan_sees_jax_package_imports(tmp_path):

@@ -151,6 +151,10 @@ def test_inference_cli_on_synthetic_dataset(tmp_path):
                                    "0001-obj-boxobj-1.txt")).read()
     assert osp.exists(osp.join(root, "runs/vis", "0001-obj-box_obj-1.html"))
 
-    with pytest.raises(NotImplementedError, match="fp32 only"):
+    # the default is the bf16 preset; stem_dtype=float32 selects fp32
+    res32 = inference.inference_core(
+        _cli_config(root, device="cpu", stem_dtype="float32"), *args)
+    assert set(res32) == {"cmd1", "cmd3", "cmd5"}
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
         inference.inference_core(
-            _cli_config(root, compute_dtype="bfloat16"), *args)
+            _cli_config(root, device="cpu", compute_dtype="float16"), *args)

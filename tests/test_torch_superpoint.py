@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from onepose_tpu.models import superpoint as jsp
 from onepose_tpu_torch.models import convert
+from onepose_tpu_torch.models import gats_spg as tgats
 from onepose_tpu_torch.models import superpoint as tsp
 
 
@@ -94,7 +95,13 @@ def test_invalid_slots_follow_dustbin_convention(models):
 
 
 def test_bf16_is_refused(models):
+    """SuperPoint computes in bf16 too (tests/test_torch_superpoint_bf16.py);
+    GATsSPG's bf16 body is still refused, and so is a SuperPoint dtype or
+    stem that the port does not have."""
     _, model = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsp.extract(model, torch.zeros((1, 16, 16, 1)),
-                    {"stem_dtype": "bfloat16"})
+        tgats.resolve_config({"compute_dtype": "bfloat16"})
+    for cfg in ({"stem_dtype": "float16"}, {"compute_dtype": "float16"},
+                {"stem": "xla"}):
+        with pytest.raises(ValueError):
+            tsp.extract(model, torch.zeros((1, 16, 16, 1)), cfg)
