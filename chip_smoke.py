@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``onepose_tpu_torch/csrc`` at
 first use (into ``build/onepose_tpu_torch/``, counted in this run's time)
-and runs thirteen phases; weights and inputs come from fixed seeds.
+and runs fourteen phases; weights and inputs come from fixed seeds.
 
   1. card name and power limit (nvidia-smi);
   2. kernel build time, ptxas register use, and the count of tensor-core
@@ -102,14 +102,37 @@ and runs thirteen phases; weights and inputs come from fixed seeds.
      RANSAC noise injected: the preset's pose delta against fp32 within
      twice fp32's own key-to-key noise floor (two noise draws; medians and
      95th percentiles, floors at least 0.05 and 0.1 deg) and no more
-     cmd1/3/5 bucket flips than that floor makes.
+     cmd1/3/5 bucket flips than that floor makes;
+ 14. several cards: a world of max(2, cards) ranks, one card each (they
+     share a card over gloo where there are fewer; NCCL otherwise), spawned
+     by ``parallel/launch.py::run_local``; it prints the world, the backend
+     and the card count. Against one rank on the same inputs: (a) the
+     pipeline at phase 7's shape (batch 8 split over the world, match
+     threshold 0, the DB planted for frame 0), (b) serving 8 planted
+     objects over a (world/2, 2) mesh (the catalog split over the model
+     axis) and ``MultiHostPoseServer.serve_forever`` over two batches,
+     (c) SfM extraction and matching of 16 of 11a's images and 16 pairs
+     (SuperGlue planted on their descriptors): outputs bit-equal to one
+     rank's on the same rows, poses within phase 8's 1e-4 of one rank's
+     batch of 8 (its matches differ where one rank's own calls on those
+     rows differ: cuBLAS takes other paths at other row counts), the
+     planted poses recovered, the HDF5 files equal by keypoint
+     position; (d) the train entry for an epoch of phase 12's data at
+     ``n_devices`` = the world: rank 0's checkpoint read by
+     ``load_gats_spg``, the losses within 1e-5 of phase 12 (d)'s; (e)
+     GATsSPG in bf16 at phase 7's width on a planted world against fp32:
+     match Jaccard, the descriptors' RMS gap, ms of the match stage. Stage
+     times come from ``utils/profiling.Timer``.
 
-Each main path (phases 7, 8, 9, 10b, 11a and 12d) is driven once with the launch
-counts set to 0 just before it and read just after; the kernels line sums
-those counts. Every phase's launches, comparisons included, are in the JSON.
-Detailed results go to ``DIR/chip_smoke.json`` and ``DIR/profile.txt``
-(default ``build/chip_smoke``). Any failed phase makes the script exit 1
-without the kernels line and the final line. The last line of a passing
+``--phases 2,11a,12,14`` runs a subset (phase 1 always; 14 needs 11a and
+12) and prints neither the kernels line nor the final line. Each main
+path (phases 7, 8, 9, 10b, 11a, 12d and 14's (a)-(c) on every rank) is
+driven once with the launch counts set to 0 just before it and read just
+after; the kernels line sums those counts, every rank's included. Every
+phase's launches, comparisons included, are in the JSON. Detailed
+results go to ``DIR/chip_smoke.json`` and ``DIR/profile.txt`` (default
+``build/chip_smoke``). Any failed phase makes the script exit 1 without
+the kernels line and the final line. The last line of a passing
 run is ``{"ok": true, "device": {...}}``. There is no CPU path: without a
 CUDA device the script exits 1.
 """
@@ -1596,6 +1619,7 @@ class Smoke:
                    f"training: merge_anno indexed {stats['items']} frames of "
                    f"11a's capture (train on {TRAIN_ITEMS}, validate on "
                    f"{VAL_ITEMS})")
+        self.train_paths, self.train_work = paths, work   # phase 14 (d)
         self.train_gather_vs_host(paths["train"], stats)
         self.train_card_vs_cpu(paths["train"], stats)
         self.train_timed(paths["train"], stats)
@@ -1843,7 +1867,7 @@ class Smoke:
 
         cfg = wrap({
             "type": "train", "seed": 0, "device": str(self.dev),
-            "parallel": {"n_devices": None},
+            "parallel": {"n_devices": 1},
             "model": {**TRAIN_YAML["model"], "spp_model_path": sp_path},
             "trainer": {**TRAIN_YAML["trainer"], "max_epochs": 1,
                         "log_every_n_steps": 1},
@@ -2023,6 +2047,254 @@ class Smoke:
                    f"keypoint Jaccard median {med['kpt_jaccard']:.4f}, match "
                    f"Jaccard median {med['match_jaccard']:.4f}; {rule}")
 
+    # -- 14 ---------------------------------------------------------------
+    def several_cards(self):
+        """14: the paths over a world of ``max(2, cards)`` ranks, one card
+        each (ranks share a card over gloo where there are fewer cards),
+        each against one rank of the same inputs: (a) the pipeline at
+        phase 7's shape on a planted DB, (b) serving 8 planted objects
+        over a model axis of 2 and the multi-process server, (c) SfM
+        extraction and matching of 16 of 11a's images, then (d) the train
+        entry for an epoch of phase 12's data at ``n_devices`` = the world
+        and (e) GATsSPG in bf16 at phase 7's width against fp32. Stage
+        times by ``utils/profiling.Timer``; the ranks' launch counts of
+        (a)-(c) are summed into the kernels line."""
+        from onepose_tpu_torch.parallel import launch
+        from onepose_tpu_torch.utils.profiling import Timer
+
+        cards = torch.cuda.device_count()
+        world = max(2, cards)
+        backend = launch.pick_backend("cuda", world, cards)
+        stats = self.results["several_cards"] = {
+            "world": world, "backend": backend, "cards": cards}
+        log(f"   world {world} ranks, backend {backend}, {cards} card(s)  "
+            f"[{self.smi}]")
+        timer = Timer()
+        torch.cuda.empty_cache()
+        with timer.scope("setup"):
+            payload = cards_payload(self.sfm_capture, self.dev)
+        with timer.scope("one rank"):
+            one = drive_cards(payload, None, None, self.dev,
+                              split=(world, world // 2))
+        with timer.scope("world"):
+            ranks = launch.run_local(several_cards_rank, world, payload,
+                                     device="cuda", timeout=600)
+        self.results.setdefault("launches", {})["several cards"] = launched = {
+            k: sum(r["launches"][k] for r in ranks) for k in ("stem", "match")}
+        stats["launches_per_rank"] = [r["launches"] for r in ranks]
+        stats["backend_seen"] = [r["backend"] for r in ranks]
+        self.check(all(launched[k] > 0 for k in launched)
+                   and all(r["backend"] == backend for r in ranks),
+                   f"several cards: the ranks ran {backend} and launched "
+                   f"their kernels {stats['launches_per_rank']}")
+        self.cards_compare(one, ranks, stats)
+        with timer.scope("train entry"):
+            self.cards_train_entry(world, stats)
+        with timer.scope("bf16 matcher"):
+            self.cards_bf16(stats)
+        stats["ms"] = {"one rank pipeline batch": one["pipeline_ms"],
+                       "world pipeline batch": [r["pipeline_ms"]
+                                                for r in ranks]}
+        stats["timer"] = timer.summary()
+        log("   stage s: " + ", ".join(f"{k} {v['total_s']:.1f}" for k, v
+                                       in stats["timer"].items()))
+
+    def cards_compare(self, one, ranks, stats):
+        """14 (a)-(c): every rank's whole-batch outputs against one
+        rank's on the same rows (matches and success equal, poses within
+        1e-6) and against one rank's batch of 8 (poses within phase 8's
+        1e-4, the matches that differ being those one rank's own calls on
+        the ranks' rows differ in), the planted poses recovered; the
+        multi-process server's results equal to one process's; the
+        world's HDF5 files (rank 0's) equal to one rank's by keypoint
+        position."""
+        from onepose_tpu_torch.utils import geometry as geo
+
+        res = stats["compare"] = {}
+        for r in ranks:
+            for path in ("pipeline", "serving"):
+                got, rows, whole = r[path], one[path + "_rows"], one[path]
+
+                def apart(a, b):
+                    return (int((a["matches0"] != b["matches0"]).sum()),
+                            float(np.abs(a["poses"] - b["poses"]).max()),
+                            bool((a["success"] == b["success"]).all()))
+
+                same, whole_d, own_d = (apart(got, rows), apart(got, whole),
+                                        apart(rows, whole))
+                res.setdefault(path, []).append({
+                    "vs_same_rows": same, "vs_whole_batch": whole_d,
+                    "one_rank_rows_vs_whole_batch": own_d})
+                # the same rows: the same arithmetic, so the same bits; the
+                # whole batch of 8: cuBLAS takes other paths at other row
+                # counts, and one rank's own calls on the ranks' rows part
+                # from its batch of 8 at the same slots
+                self.check(same[0] == 0 and same[1] <= 1e-6 and same[2]
+                           and whole_d[0] == own_d[0] and whole_d[1] <= 1e-4
+                           and whole_d[2],
+                           f"several cards ({path}) rank {r['rank']}: "
+                           f"against one rank on the same rows matches0 "
+                           f"differ at {same[0]} slots, poses by "
+                           f"{same[1]:.2e}; against one rank's batch of {B} "
+                           f"at {whole_d[0]} slots (one rank's own calls on "
+                           f"these rows at {own_d[0]}), poses by "
+                           f"{whole_d[1]:.2e}")
+        # the pipeline's one DB is planted for frame 0 (the first frame to
+        # claim a point keeps it); each served object for its own frame
+        gt = one["poses_gt"]
+        for path, frames in (("pipeline", 1), ("serving", B)):
+            errs = [geo.query_pose_error(p, g) for p, g in zip(
+                ranks[0][path]["poses"][:frames], gt[:frames])]
+            res[path + "_vs_planted"] = errs
+            self.check(all(r < POSE_DEG and t < POSE_CM for r, t in errs)
+                       and bool(ranks[0][path]["success"][:frames].all()),
+                       f"several cards ({path}): planted poses of "
+                       f"{frames} frame(s) within "
+                       f"{POSE_DEG} deg / {POSE_CM} cm, worst "
+                       f"{max(e[0] for e in errs):.4f} deg, "
+                       f"{max(e[1] for e in errs):.4f} cm")
+        root = ranks[0]["multihost"]
+        same = len(root) == len(one["multihost"]) and all(
+            a["success"] == b["success"] and a["num_inliers"] ==
+            b["num_inliers"] and (a["pose"] is None or float(np.abs(
+                a["pose"] - b["pose"]).max()) <= 1e-4)
+            for a, b in zip(root, one["multihost"]))
+        self.check(same and all(r["multihost"] == [] for r in ranks[1:])
+                   and all(r["served"] == 2 for r in ranks),
+                   f"several cards: the multi-process server's "
+                   f"{len(root)} results equal one process's; every rank "
+                   f"served {[r['served'] for r in ranks]} batches")
+        ok, n_kpts, n_matches = sfm_equal_by_position(
+            one["sfm_dir"], ranks[0]["sfm_dir"], one["names"], one["pairs"])
+        res["sfm"] = {"keypoints": n_kpts, "matches": n_matches}
+        self.check(ok and n_kpts > 0 and n_matches > 0,
+                   f"several cards (SfM): extraction and matching of "
+                   f"{len(one['names'])} images and {len(one['pairs'])} "
+                   f"pairs equal to one rank's by position ({n_kpts} "
+                   f"keypoints, {n_matches} matches)")
+
+    def cards_train_entry(self, world, stats):
+        """14 (d): the train entry for an epoch of phase 12's data at
+        ``parallel.n_devices`` = the world (it spawns its ranks; no
+        validation: the frames live in this process only); rank 0's
+        checkpoint read by ``load_gats_spg`` equals the state returned,
+        and the logged losses are phase 12 (d)'s one-process ones."""
+        import shutil
+
+        from onepose_tpu_torch.config import Config
+        from onepose_tpu_torch.train import entry
+        from onepose_tpu_torch.utils import model_io
+
+        work = os.path.join(SFM_WORK, "train_cards")
+        shutil.rmtree(work, ignore_errors=True)
+
+        def wrap(d):
+            return Config({k: wrap(v) if isinstance(v, dict) else v
+                           for k, v in d.items()})
+
+        cfg = wrap({
+            "type": "train", "seed": 0, "device": "cuda",
+            "parallel": {"n_devices": world},
+            "model": {**TRAIN_YAML["model"],
+                      "spp_model_path": os.path.join(work, "missing.pth")},
+            "trainer": {**TRAIN_YAML["trainer"], "max_epochs": 1,
+                        "log_every_n_steps": 1},
+            "datamodule": {**TRAIN_YAML["datamodule"],
+                           "train_anno_file": self.train_paths["train"],
+                           "val_anno_file": os.path.join(work, "none.json")},
+            "checkpoint": {"dirpath": os.path.join(work, "ckpts")},
+            "logging": {"log_dir": os.path.join(work, "logs"),
+                        "wandb_project": None}})
+        t0 = time.perf_counter()
+        state, metrics = entry.train(cfg)
+        entry_s = time.perf_counter() - t0
+        ckpt = model_io.latest_checkpoint(cfg.checkpoint.dirpath)
+        loaded = model_io.load_gats_spg(ckpt)
+        same = all(torch.equal(a, b.detach().cpu()) for a, b in zip(
+            loaded.parameters(), state.model.parameters()))
+        logs = {}
+        for tag, d in (("world", work), ("one", self.train_work)):
+            with open(os.path.join(d, "logs", "metrics.jsonl")) as f:
+                logs[tag] = [(r["step"], r["train_loss"]) for r in map(
+                    json.loads, f) if "train_loss" in r]
+        rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(
+            logs["world"], logs["one"]))
+        stats["train_entry"] = {"s": entry_s, "checkpoint": ckpt,
+                                "files": sorted(os.listdir(
+                                    cfg.checkpoint.dirpath)),
+                                "losses": logs, "max_rel_loss_diff": rel,
+                                "metrics": metrics}
+        self.check(same and [s for s, _ in logs["world"]] == [
+            s for s, _ in logs["one"]] and rel <= 1e-5
+                   and stats["train_entry"]["files"] == [
+                       "epoch=0.ckpt", "last.ckpt"],
+                   f"several cards (train entry): {world} ranks trained "
+                   f"{state.step} micro-steps in {entry_s:.1f} s, rank 0's "
+                   f"{os.path.basename(ckpt)} read by load_gats_spg "
+                   f"(parameters equal {same}), losses within {rel:.1e} of "
+                   f"phase 12's one process")
+
+    def cards_bf16(self, stats):
+        """14 (e): GATsSPG with ``compute_dtype="bfloat16"`` at phase 7's
+        width ([8,1024] query x [8,2000] DB tokens, leaf 8, D=256, 4
+        blocks) on a planted world (``planted_world``: matching by
+        descriptor self-similarity) against fp32: match Jaccard, the
+        descriptors' RMS gap, the match kernel launched, and ms of the
+        match stage (GNN and kernel) in each mode."""
+        from onepose_tpu_torch.models import convert, gats_spg, superpoint
+        from onepose_tpu_torch.utils.synthetic import ring_views
+
+        rng = np.random.default_rng(15)
+        sp_model = convert.superpoint_from_jax(
+            convert.init_superpoint_params(rng)).to(self.dev)
+        kmat, poses, views = ring_views(rng, B, hw=H,
+                                        focal=float(KMAT[0, 0]),
+                                        arc_deg=40.0)
+        det = superpoint.extract(sp_model, torch.from_numpy(
+            views[..., None]).to(self.dev), {"max_keypoints": K_PTS,
+                                             "nms_radius": 3})
+        db, gats = planted_world(det, kmat, poses, rng, SHAPE3D // B, LEAF)
+        model = convert.gats_spg_from_jax(gats).to(self.dev).eval()
+        t = lambda x: torch.as_tensor(np.asarray(x)).to(self.dev)  # noqa
+        n2 = len(db.keypoints3d)
+        data = {"descriptors2d_query": det.descriptors,
+                "descriptors3d_db": t(db.descriptors3d).expand(B, n2, -1),
+                "descriptors2d_db": t(db.descriptors2d_db).expand(
+                    B, n2 * LEAF, -1),
+                "mask2d": det.mask, "mask3d": t(db.mask3d).expand(B, n2)}
+        out, ms, desc = {}, {}, {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = {"match_threshold": 0.0, "compute_dtype": dtype}
+            before = launch_counts()["match"]
+            out[dtype] = gats_spg.forward_match_only(model, data, cfg)
+            torch.cuda.synchronize()
+            launched = launch_counts()["match"] - before
+            with torch.no_grad():
+                desc[dtype] = gats_spg.gnn_body(
+                    model, data, gats_spg.resolve_config(cfg))
+            ms[dtype] = cuda_ms(lambda: gats_spg.forward_match_only(
+                model, data, cfg), 5, 1)
+        jac = []
+        for i in range(B):
+            sets = [{(k, m) for k, m in enumerate(o.matches0[i].tolist())
+                     if m >= 0} for o in out.values()]
+            jac.append(len(sets[0] & sets[1]) / max(len(sets[0] | sets[1]),
+                                                    1))
+        rms = float(torch.sqrt(torch.mean(torch.stack([
+            (a - b).square().mean() for a, b in zip(
+                desc["bfloat16"], desc["float32"])]))))
+        finite = all(bool(torch.isfinite(d).all()) and d.dtype ==
+                     torch.float32 for d in desc["bfloat16"])
+        stats["bf16"] = {"ms": ms, "match_jaccard": jac, "rms_gap": rms,
+                         "matches": [int((o.matches0 >= 0).sum())
+                                     for o in out.values()]}
+        self.check(finite and launched == 1 and float(np.median(jac)) > 0.5,
+                   f"several cards (bf16 GATsSPG): match Jaccard against "
+                   f"fp32 median {np.median(jac):.4f}, min {min(jac):.4f}; "
+                   f"descriptor RMS gap {rms:.2e}; match stage "
+                   f"{ms['bfloat16']:.3f} ms in bf16, {ms['float32']:.3f} "
+                   f"ms in fp32  [{self.smi}]")
+
     def kernels_line(self):
         st = self.results.get("stem", {}).get(str((B, H, W, 1)), {})
         mt = self.results.get("match", {}).get(
@@ -2050,6 +2322,244 @@ class Smoke:
              "plain_ms": mt.get("plain_ms"), "bound_ms": mt.get("bound_ms"),
              "bound_by": mt.get("bound_by"), "library_ms": None},
         ]}
+
+
+CARDS_SEED = 14
+CARDS_SFM_IMAGES = 16
+
+
+def cards_world(planted=None):
+    """14's models, the pipeline's DB, the serving catalog and the
+    frames, rebuilt from ``CARDS_SEED`` in every process; ``planted``
+    replaces the DBs' 3D points with the planted ones."""
+    rng = np.random.default_rng(CARDS_SEED)
+    sp_model, gats_model = random_models(rng)
+    kw = dict(points=SHAPE3D - 8, shape3d=SHAPE3D, leaf=LEAF,
+              obs=(LEAF, LEAF * 3))
+    pipe_db = random_db(rng, **kw)
+    serve_dbs = {f"obj{i}": random_db(rng, **kw) for i in range(N_OBJECTS)}
+    images = rng.uniform(0, 1, (B, H, W)).astype(np.float32)
+    if planted is not None:
+        pipe_db = dataclasses.replace(pipe_db, keypoints3d=planted["pipe"])
+        serve_dbs = {n: dataclasses.replace(
+            db, keypoints3d=planted.get(n, db.keypoints3d))
+            for n, db in serve_dbs.items()}
+    return sp_model, gats_model, pipe_db, serve_dbs, images
+
+
+def cards_noise(dev):
+    from onepose_tpu_torch.ops import epnp
+
+    return epnp.draw_noise(B, K_PTS, HYP, 64, torch.Generator(
+        device=dev).manual_seed(CARDS_SEED), dev)
+
+
+def cards_payload(capture, dev) -> dict:
+    """What every rank of phase 14 gets: the planted 3D points (the
+    frames' one-rank matches back-projected under known poses), 16 of
+    11a's frames with a SuperGlue planted on their descriptors, and the
+    poses planted."""
+    from onepose_tpu_torch import pipeline, serving
+    from onepose_tpu_torch.models import convert, superpoint
+    from onepose_tpu_torch.sfm import extract
+    from onepose_tpu_torch.utils import geometry as geo
+
+    sp_model, gats_model, pipe_db, serve_dbs, images = cards_world()
+    rng = np.random.default_rng(CARDS_SEED + 1)
+    poses_gt = [np.concatenate([geo.rodrigues(rng.normal(size=3) * 0.3),
+                                np.array([[0.0], [0.0], [0.5]])], 1)
+                for _ in range(B)]
+    noise = cards_noise(dev)
+    Ks = np.broadcast_to(KMAT, (B, 3, 3)).copy()
+    kw = dict(sp_config={"max_keypoints": K_PTS},
+              gats_config={"match_threshold": 0.0}, num_hypotheses=HYP,
+              refine_iters=5, device=dev)
+    first = pipeline.PosePipeline(sp_model, gats_model, pipe_db, **kw)(
+        images[..., None], Ks, noise=noise)
+    planted = {"pipe": plant_geometry(pipe_db, first.matches0,
+                                      first.keypoints2d, KMAT, poses_gt,
+                                      rng).keypoints3d}
+    reqs = cards_requests(images)
+    first = serving.PoseServer(sp_model, gats_model, serve_dbs,
+                               batch_size=B, **kw).run(reqs, noise)
+    for b, r in enumerate(reqs):
+        planted[r.object_name] = plant_geometry(
+            serve_dbs[r.object_name], first.matches0[b:b + 1],
+            first.keypoints2d[b:b + 1], KMAT, poses_gt[b:b + 1],
+            rng).keypoints3d
+    names = capture["names"][:CARDS_SFM_IMAGES]
+    sfm_images = capture["images"][:CARDS_SFM_IMAGES]
+    sp_conf = {k: v for k, v in extract.CONFS["superpoint"]["conf"].items()
+               if k != "descriptor_dim"}
+    det = superpoint.extract(capture["sp_model"].to(dev), torch.from_numpy(
+        sfm_images[..., None]).to(dev), sp_conf)
+    sg = convert.plant_superglue(convert.init_superglue_params(rng), det, 0.0)
+    return {"planted": planted, "poses_gt": poses_gt, "names": names,
+            "sfm_images": sfm_images, "sg": sg,
+            "pairs": [(names[i], names[(i + 1 + i % 3) % len(names)])
+                      for i in range(len(names))]}
+
+
+def cards_requests(images):
+    """One request per object, in the order that sends half the batch to
+    objects held by the other model shard."""
+    from onepose_tpu_torch import serving
+
+    order = [0, 5, 2, 7, 4, 1, 6, 3]
+    return [serving.PoseRequest(f"obj{order[b]}", images[b], KMAT)
+            for b in range(B)]
+
+
+def drive_cards(payload, mesh_data, mesh_serve, dev, split=(1, 1)) -> dict:
+    """Phase 14's paths (a)-(c) in this process: one rank without meshes,
+    a rank of the world with them. Outputs on the host; launch counts of
+    the one drive of the paths; the pipeline's mean ms a batch over 3
+    calls after it (``Timer``). One rank also runs the pipeline and the
+    serve step on the rows each rank of the world gets (the batch in
+    ``split`` calls: the world's data-axis sizes of the two meshes)."""
+    from onepose_tpu_torch import pipeline, serving
+    from onepose_tpu_torch.models import convert
+    from onepose_tpu_torch.parallel import collectives as comm
+    from onepose_tpu_torch.parallel import serve_launch
+    from onepose_tpu_torch.sfm import extract, match
+    from onepose_tpu_torch.utils.profiling import Timer
+
+    sp_model, gats_model, pipe_db, serve_dbs, images = cards_world(
+        payload["planted"])
+    noise = cards_noise(dev)
+    Ks = np.broadcast_to(KMAT, (B, 3, 3)).copy()
+    kw = dict(sp_config={"max_keypoints": K_PTS},
+              gats_config={"match_threshold": 0.0}, num_hypotheses=HYP,
+              refine_iters=5, device=dev)
+    pipe = pipeline.PosePipeline(sp_model, gats_model, pipe_db,
+                                 mesh=mesh_data, **kw)
+    server_kw = dict(batch_size=B, seed=CARDS_SEED, **kw)
+    server = serving.PoseServer(sp_model, gats_model, serve_dbs,
+                                mesh=mesh_serve, **server_kw)
+    reqs = cards_requests(images)
+    batches = [reqs, reqs[::-1][:5]]
+    sfm_dir = os.path.join(SFM_WORK, "cards",
+                           "one" if mesh_data is None else "world")
+    os.makedirs(sfm_dir, exist_ok=True)
+    sg_model = convert.superglue_from_jax(payload["sg"])
+    sp_sfm = convert.superpoint_from_jax(convert.init_superpoint_params(
+        np.random.default_rng(0)))    # 11a's extractor
+    feats = os.path.join(sfm_dir, "feats.h5")
+    saved = launch_counts()
+    set_launch_counts({k: 0 for k in saved})
+    out = {"pipeline": pipe(images[..., None], Ks, noise=noise),
+           "serving": server.run(reqs, noise)}
+    if mesh_serve is None:
+        out["multihost"] = [r for b in batches for r in
+                            serving.PoseServer(sp_model, gats_model,
+                                               serve_dbs, **server_kw)
+                            .infer_batch(b)]
+        out["served"] = len(batches)
+    else:
+        multi = serve_launch.MultiHostPoseServer(
+            sp_model, gats_model, serve_dbs, mesh=mesh_serve, **server_kw)
+        out["multihost"], queue = [], iter(batches)
+        root = comm.is_main_process()
+        out["served"] = serve_launch.serve_forever(
+            multi, (H, W), next_batch=(lambda: next(queue, None)) if root
+            else None, deliver=out["multihost"].extend if root else None)
+    extract.extract_to_h5(sp_sfm, payload["names"], feats,
+                          images=dict(zip(payload["names"],
+                                          payload["sfm_images"])),
+                          device=dev, mesh=mesh_data)
+    match.match_pairs_to_h5(sg_model, payload["pairs"], feats,
+                            os.path.join(sfm_dir, "matches.h5"),
+                            device=dev, mesh=mesh_data)
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    set_launch_counts({k: saved[k] + out["launches"][k] for k in saved})
+    for path in ("pipeline", "serving"):
+        out[path] = {k: v.cpu().numpy() for k, v in out[path]._asdict().items()
+                     if k in ("poses", "success", "matches0", "num_inliers")}
+    if mesh_data is None:   # the arithmetic of each rank's rows
+        def by_rows(run, per):
+            outs = [run(slice(i, i + per)) for i in range(0, B, per)]
+            return {k: np.concatenate([getattr(o, k).cpu().numpy()
+                                       for o in outs])
+                    for k in ("poses", "success", "matches0")}
+
+        def rows_noise(s):
+            return type(noise)(*(x[s] for x in noise))
+
+        per = B // split[0]
+        out["pipeline_rows"] = by_rows(lambda s: pipe(
+            images[s, ..., None], Ks[s], noise=rows_noise(s)), per)
+        per = B // split[1]
+        server_rows = serving.PoseServer(sp_model, gats_model, serve_dbs,
+                                         **{**server_kw, "batch_size": per})
+        out["serving_rows"] = by_rows(lambda s: server_rows.run(
+            reqs[s], rows_noise(s)), per)
+    pipe(images[..., None], Ks, noise=noise)    # warm-up
+    timer = Timer()
+    for _ in range(3):
+        with timer.scope("pipeline"):
+            pipe(images[..., None], Ks, noise=noise)
+            torch.cuda.synchronize()
+    out["pipeline_ms"] = timer.summary()["pipeline"]["mean_ms"]
+    out.update(sfm_dir=sfm_dir, names=payload["names"],
+               pairs=payload["pairs"], poses_gt=payload["poses_gt"])
+    return out
+
+
+def several_cards_rank(payload) -> dict:
+    """One rank of phase 14's world: (a)-(c) over a data mesh of the
+    whole world and a serving mesh with a model axis of 2."""
+    import torch.distributed as dist
+
+    from onepose_tpu_torch.ops.precision import pin_fp32
+    from onepose_tpu_torch.parallel import collectives as comm
+    from onepose_tpu_torch.parallel import mesh as pmesh
+
+    pin_fp32()
+    world = comm.get_world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = drive_cards(payload, pmesh.make_mesh(world),
+                      pmesh.make_mesh(world, (world // 2, 2)), dev)
+    out.update(rank=comm.get_rank(), backend=dist.get_backend())
+    return out
+
+
+def sfm_equal_by_position(dir1, dir2, names, pairs):
+    """(equal, keypoints, matches): two extract+match runs' HDF5 files
+    compared by keypoint position: each image's keypoint rows sorted by
+    (x, y), positions equal, scores and descriptors within 1e-5, each
+    pair's matches the same pairs of positions."""
+    from onepose_tpu_torch.sfm.match import names_to_pair
+    from onepose_tpu_torch.utils import hdf5
+
+    ok, n_kpts, n_matches = True, 0, 0
+    with hdf5.File(os.path.join(dir1, "feats.h5"), "r") as f1, \
+            hdf5.File(os.path.join(dir2, "feats.h5"), "r") as f2, \
+            hdf5.File(os.path.join(dir1, "matches.h5"), "r") as m1, \
+            hdf5.File(os.path.join(dir2, "matches.h5"), "r") as m2:
+        kps = {}
+        for n in names:
+            rows = []
+            for f in (f1, f2):
+                kp = f[n]["keypoints"][()]
+                o = np.lexsort((kp[:, 1], kp[:, 0]))
+                rows.append((kp[o], f[n]["scores"][()][o],
+                             f[n]["descriptors"][()][:, o]))
+            (k1, s1, d1), (k2, s2, d2) = rows
+            ok &= (k1.shape == k2.shape and bool((k1 == k2).all())
+                   and float(np.abs(s1 - s2).max()) <= 1e-5
+                   and float(np.abs(d1 - d2).max()) <= 1e-5)
+            n_kpts += len(k1)
+            kps[n] = (f1[n]["keypoints"][()], f2[n]["keypoints"][()])
+        for a, b in pairs:
+            sets = []
+            for i, m in enumerate((m1, m2)):
+                m0 = m[names_to_pair(a, b)]["matches0"][()]
+                sets.append({(tuple(kps[a][i][k]), tuple(kps[b][i][j]))
+                             for k, j in enumerate(m0) if j >= 0})
+            ok &= sets[0] == sets[1]
+            n_matches += len(sets[0])
+    return ok, n_kpts, n_matches
 
 
 def launch_counts() -> dict:
@@ -2391,6 +2901,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=os.path.join("build", "chip_smoke"),
                         help="directory for chip_smoke.json and profile.txt")
+    parser.add_argument("--phases", default=None,
+                        help="comma-separated phases to run (e.g. "
+                        "2,11a,12,14; 14 needs 11a and 12); default all. "
+                        "A partial run prints no final line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path",
@@ -2401,22 +2915,29 @@ def main() -> int:
     pin_fp32()
     os.makedirs(args.out, exist_ok=True)
     smoke = Smoke(args.out)
-    smoke.phase("1 card", smoke.card)
-    smoke.phase("2 kernel build", smoke.build)
-    smoke.phase("3 stem kernel vs plain", smoke.stem)
-    smoke.phase("4 match kernel vs plain", smoke.match)
-    smoke.phase("5 known-pose PnP on the card", smoke.known_pose)
-    smoke.phase("6 card vs CPU parity", smoke.parity)
-    smoke.phase("7 protocol-shape pipeline", smoke.protocol)
-    smoke.phase("8 multi-object serving", smoke.serving)
-    smoke.phase("9 feature-matching detector", smoke.detector)
-    smoke.phase("10a keyframe BA tracker", smoke.tracking)
-    smoke.phase("10b tracked demo path", smoke.demo)
-    smoke.phase("11a SfM from images", smoke.sfm_images)
-    smoke.phase("11b SfM at the reference scale from features",
-                smoke.sfm_features)
-    smoke.phase("12 training at full width", smoke.training)
-    smoke.phase("13 bf16 preset", smoke.bf16_preset)
+    phases = [
+        ("1 card", smoke.card), ("2 kernel build", smoke.build),
+        ("3 stem kernel vs plain", smoke.stem),
+        ("4 match kernel vs plain", smoke.match),
+        ("5 known-pose PnP on the card", smoke.known_pose),
+        ("6 card vs CPU parity", smoke.parity),
+        ("7 protocol-shape pipeline", smoke.protocol),
+        ("8 multi-object serving", smoke.serving),
+        ("9 feature-matching detector", smoke.detector),
+        ("10a keyframe BA tracker", smoke.tracking),
+        ("10b tracked demo path", smoke.demo),
+        ("11a SfM from images", smoke.sfm_images),
+        ("11b SfM at the reference scale from features",
+         smoke.sfm_features),
+        ("12 training at full width", smoke.training),
+        ("13 bf16 preset", smoke.bf16_preset),
+        ("14 several cards", smoke.several_cards)]
+    chosen = None if args.phases is None else set(args.phases.split(","))
+    if chosen is not None:
+        chosen.add("1")     # the card's name and power limit
+    for name, fn in phases:
+        if chosen is None or name.split()[0] in chosen:
+            smoke.phase(name, fn)
     smoke.check("jax" not in sys.modules, "no JAX imported")
 
     smoke.results["failures"] = smoke.failures
@@ -2426,6 +2947,10 @@ def main() -> int:
         log(f"chip_smoke: {len(smoke.failures)} failure(s): "
             f"{smoke.failures}")
         return 1
+    if chosen is not None:
+        log(f"chip_smoke: phases {sorted(chosen)} passed (a partial run: "
+            "no kernels line, no final line)")
+        return 0
     log(json.dumps(smoke.kernels_line()))
     log(smoke.smi)
     log(json.dumps({"ok": True, "device": {

@@ -15,6 +15,14 @@ is no quiet CPU fallback). SuperPoint defaults as in the root entry: a
 bf16 direct stem and a bf16 encoder (``superpoint.entry_preset``);
 ``stem_dtype=float32`` selects the fp32 encoder and the stem kernel, and
 ``compute_dtype`` or ``stem`` may be set alone.
+
+``n_devices=N`` runs every batch data-parallel over N ranks, one card
+each (``parallel/launch.py::run_local``; N must divide ``batch_size``, as
+in the root entry): each rank stages and runs its rows, the outputs are
+all-gathered, and rank 0 evaluates every frame and writes the reports.
+A loader thread reads the frames, and a staging thread uploads each
+batch ahead of its step (``runtime/loader.py``), as the root entry's
+loader starts each upload ahead.
 """
 from __future__ import annotations
 
@@ -40,15 +48,38 @@ def inference_core(cfg, data_root, seq_dir, sfm_model_dir, sp_model,
     ``cfg.batch_size``, evaluated against the ground truth → cmd1/3/5.
     ``noises``, when given, holds each batch's injected RANSAC noise
     (``epnp.RansacNoise``); else RANSAC draws from a generator seeded
-    12345."""
+    12345. ``cfg.n_devices`` above 1 spawns that many ranks unless this
+    process is already one of a world; the result is rank 0's (None on the
+    other ranks of a world)."""
+    from onepose_tpu_torch.parallel import collectives as comm, launch
+
+    n_dev = int(cfg.get("n_devices", 1) or 1)
+    if n_dev > 1 and cfg.batch_size % n_dev:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
+                         f"n_devices {n_dev}")
+    if n_dev > 1 and comm.get_world_size() == 1:
+        return launch.run_local(
+            inference_core, n_dev, cfg, data_root, seq_dir, sfm_model_dir,
+            sp_model, gats_model, None if noises is None else list(noises),
+            device=torch.device(cfg.get("device", "cuda")).type)[0]
+    return _core(cfg, seq_dir, sfm_model_dir, sp_model, gats_model, noises)
+
+
+def _core(cfg, seq_dir, sfm_model_dir, sp_model, gats_model, noises):
     from onepose_tpu_torch import pipeline
     from onepose_tpu_torch.datasets import anno
     from onepose_tpu_torch.evaluators import Evaluator, record_eval_result
     from onepose_tpu_torch.models import superpoint
-    from onepose_tpu_torch.runtime.loader import PrefetchLoader
+    from onepose_tpu_torch.parallel import collectives as comm
+    from onepose_tpu_torch.parallel import mesh as pmesh
+    from onepose_tpu_torch.runtime.loader import (DeviceStager,
+                                                  PrefetchLoader, stage_ahead)
     from onepose_tpu_torch.sfm.extract import CONFS, load_gray
     from onepose_tpu_torch.utils import path_utils
 
+    world = comm.get_world_size()
+    mesh = pmesh.make_mesh(world) if world > 1 else None
+    main = comm.is_main_process()
     anno_dir = path_utils.get_anno_dir(
         sfm_model_dir, cfg.network.detection, cfg.network.matching)
     db = anno.load_object_db(
@@ -63,7 +94,8 @@ def inference_core(cfg, data_root, seq_dir, sfm_model_dir, sp_model,
         glob.glob(osp.join(seq_dir, color_dir, "*.png")),
         key=lambda p: int(osp.splitext(osp.basename(p))[0]))
     if not img_lists:
-        print(f"[inference] no frames in {seq_dir}/{color_dir}")
+        if main:
+            print(f"[inference] no frames in {seq_dir}/{color_dir}")
         return None
 
     # the extract conf (nms_radius 3), as the JAX entry and the reference
@@ -76,15 +108,33 @@ def inference_core(cfg, data_root, seq_dir, sfm_model_dir, sp_model,
         sp_model, gats_model, db, sp_config=sp_conf,
         reproj_threshold=cfg.pnp.reproj_threshold,
         num_hypotheses=cfg.pnp.num_hypotheses,
-        refine_iters=cfg.pnp.refine_iters, device=device)
+        refine_iters=cfg.pnp.refine_iters, device=device, mesh=mesh)
 
     evaluator = Evaluator()
     bs = cfg.batch_size
+    rows = pmesh.data_rows(mesh, bs)
     generator = torch.Generator(device=device).manual_seed(12345)
     noises = iter(noises) if noises is not None else None
     scene_poses = [] if cfg.get("save_wis3d", False) else None
     loader = PrefetchLoader(img_lists, lambda p: load_gray(p)[..., None],
                             batch_size=bs, depth=2)
+    stager = DeviceStager(device)
+
+    def stage(item):
+        """On the staging thread: the batch's intrinsics and ground truth,
+        then the upload of this rank's rows."""
+        images, chunk, n_real = item
+        Ks, gt_poses = [], []
+        for p in chunk:
+            Ks.append(np.loadtxt(path_utils.get_intrin_path_by_color(
+                p, cfg.object_detect_mode)))
+            gt_poses.append(np.loadtxt(path_utils.get_gt_pose_path_by_color(
+                p, cfg.object_detect_mode)))
+        while len(Ks) < bs:
+            Ks.append(Ks[-1])
+        Ks = np.stack(Ks).astype(np.float32)
+        return stager({"images": images[rows], "Ks": Ks[rows]}), gt_poses, \
+            n_real
 
     # keep a bounded window of batches in flight, draining the oldest
     pending = []
@@ -98,21 +148,18 @@ def inference_core(cfg, data_root, seq_dir, sfm_model_dir, sp_model,
             if scene_poses is not None and success[bi]:
                 scene_poses.append(poses[bi])
 
-    for images, chunk, n_real in loader:
-        Ks, gt_poses = [], []
-        for p in chunk:
-            Ks.append(np.loadtxt(path_utils.get_intrin_path_by_color(
-                p, cfg.object_detect_mode)))
-            gt_poses.append(np.loadtxt(path_utils.get_gt_pose_path_by_color(
-                p, cfg.object_detect_mode)))
-        while len(Ks) < bs:
-            Ks.append(Ks[-1])
-        out = pipe(images, np.stack(Ks).astype(np.float32),
-                   generator=generator,
-                   noise=next(noises) if noises is not None else None)
+    for staged, gt_poses, n_real in stage_ahead(iter(loader), stage):
+        batch = staged.wait()
+        out = pipe.run_rows(
+            batch["images"], batch["Ks"], generator=generator,
+            noise=next(noises) if noises is not None else None)
+        if not main:   # rank 0 evaluates the whole batch
+            continue
         pending.append((out, gt_poses, n_real))
         if len(pending) > MAX_IN_FLIGHT:
             drain(pending.pop(0))
+    if not main:
+        return None
     for item in pending:
         drain(item)
 
@@ -133,8 +180,26 @@ def inference_core(cfg, data_root, seq_dir, sfm_model_dir, sp_model,
 
 
 def inference(cfg):
+    """Every listed (object, sequence); ``n_devices`` above 1 spawns that
+    many ranks once for all of them, and the results are rank 0's."""
+    from onepose_tpu_torch.parallel import collectives as comm, launch
+
+    n_dev = int(cfg.get("n_devices", 1) or 1)
+    if n_dev > 1 and cfg.batch_size % n_dev:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
+                         f"n_devices {n_dev}")
+    if n_dev > 1 and comm.get_world_size() == 1:
+        return launch.run_local(
+            _inference, n_dev, cfg,
+            device=torch.device(cfg.get("device", "cuda")).type)[0]
+    return _inference(cfg)
+
+
+def _inference(cfg):
+    from onepose_tpu_torch.parallel import collectives as comm
     from onepose_tpu_torch.utils import model_io
 
+    log = print if comm.is_main_process() else (lambda *a: None)
     gats_model = model_io.load_gats_spg(cfg.model.onepose_model_path)
     sp_model = model_io.load_superpoint(cfg.model.extractor_model_path)
 
@@ -146,7 +211,7 @@ def inference(cfg):
         sfm_model_dir = osp.join(cfg.sfm_model_dir, sfm_name)
         for seq in seqs:
             seq_dir = osp.join(data_root, seq)
-            print(f"[inference] eval {seq_dir}")
+            log(f"[inference] eval {seq_dir}")
             res = inference_core(cfg, data_root, seq_dir, sfm_model_dir,
                                  sp_model, gats_model)
             if res is not None:
@@ -154,7 +219,7 @@ def inference(cfg):
     if results:
         agg = {k: float(np.mean([r[k] for r in results.values()]))
                for k in next(iter(results.values()))}
-        print(f"[inference] aggregate over {len(results)} seqs: {agg}")
+        log(f"[inference] aggregate over {len(results)} seqs: {agg}")
     return results
 
 

@@ -16,6 +16,14 @@ choice; here each head is computed on its own.
 inference; training differentiates ``forward_train`` (the same
 ``gnn_body`` and dual softmax), as the JAX package differentiates its
 ``forward``.
+
+``compute_dtype="bfloat16"`` runs the GNN body as the JAX package's bf16
+mode does: parameters and inputs cast to bf16, each linear accumulating
+in fp32 (bias added in fp32, one rounding back), linear attention's token
+sums and the GATs aggregation accumulated and kept in fp32 up to their
+outputs, instance-norm statistics in fp32, and ``final_proj``'s output
+cast to fp32 before the L2 norm, so the matching head (and the match
+kernel) take fp32 descriptors.
 """
 from __future__ import annotations
 
@@ -28,6 +36,8 @@ from torch.utils.checkpoint import checkpoint
 
 from onepose_tpu_torch.ops.match import dual_softmax_argmax
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
 DEFAULT_CONFIG = {
     "descriptor_dim": 256,
     "num_heads": 4,
@@ -37,6 +47,8 @@ DEFAULT_CONFIG = {
     "include_self": True,
     "additional": False,
     "with_linear_transform": False,
+    # "bfloat16": the GNN body in bf16 with fp32 accumulation (module
+    # docstring); the dual softmax stays fp32
     "compute_dtype": "float32",
     # recompute the GATs and attention steps in the backward pass
     # (torch.utils.checkpoint): activation memory for compute
@@ -89,27 +101,67 @@ class GATsSPG(nn.Module):
         self.final_proj = nn.Linear(d, d)
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype products of ``x`` accumulate in: fp32 for bf16 (the JAX
+    package's ``preferred_element_type=float32``), else ``x``'s own."""
+    return torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+
+
+def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """``lin`` applied to ``x`` in ``x``'s dtype, the parameters cast to
+    it. In bf16 the backends accumulate the products in fp32 and round the
+    biased sum to bf16 once (``pin_fp32`` turns cuBLAS's reduced-precision
+    bf16 reductions off)."""
+    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+
+
 def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      num_heads: int) -> torch.Tensor:
     """Multi-head O(N) linear attention with the elu(x)+1 feature map on
-    [B, N, D] tensors, channel c in head c % num_heads."""
+    [B, N, D] tensors, channel c in head c % num_heads. Below fp32 it
+    rounds where the JAX package's compiled bf16 graph rounds: elu in the
+    inputs' dtype, the +1, V / N, K^T V, the normalizer and the output in
+    :func:`_acc_dtype`, the key sum rounded to the inputs' dtype, the
+    result rounded back once."""
     b, n, d = q.shape
     m = k.shape[1]
     dh = d // num_heads
-    qf = (F.elu(q) + 1.0).reshape(b, n, dh, num_heads)
-    kf = (F.elu(k) + 1.0).reshape(b, m, dh, num_heads)
-    vf = (v / m).reshape(b, m, dh, num_heads)
+    acc = _acc_dtype(q)
+    qf = (F.elu(q).to(acc) + 1.0).reshape(b, n, dh, num_heads)
+    kf = (F.elu(k).to(acc) + 1.0).reshape(b, m, dh, num_heads)
+    vf = (v.to(acc) * (1.0 / m)).reshape(b, m, dh, num_heads)
     kv = torch.einsum("bmdh,bmeh->bdeh", kf, vf)
-    z = 1.0 / (torch.einsum("bndh,bdh->bnh", qf, kf.sum(1)) + 1e-6)
+    ksum = kf.sum(1).to(q.dtype).to(acc)
+    z = 1.0 / (torch.einsum("bndh,bdh->bnh", qf, ksum) + 1e-6)
     out = torch.einsum("bndh,bdeh->bneh", qf, kv) * z[:, :, None, :]
-    return (out * m).reshape(b, n, d)
+    return (out * m).to(q.dtype).reshape(b, n, d)
+
+
+def _leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    """leaky ReLU with the slope rounded to ``x``'s dtype first, as the
+    JAX package's weakly typed constant is."""
+    return torch.where(x >= 0, x, x * torch.tensor(slope, dtype=x.dtype))
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis. Below fp32 it rounds as the JAX
+    package's compiled bf16 graph does: the max-shifted logits in ``x``'s
+    dtype, their exp and its sum in :func:`_acc_dtype`, the sum and each
+    term rounded to ``x``'s dtype, the quotient kept in the wider type."""
+    acc = _acc_dtype(x)
+    if acc == x.dtype:
+        return torch.softmax(x, dim=-1)
+    e = torch.exp((x - x.amax(-1, keepdim=True)).to(acc))
+    return e.to(x.dtype).to(acc) / e.sum(-1, keepdim=True).to(x.dtype).to(acc)
 
 
 def _instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """InstanceNorm1d over the token axis of [B, N, C], affine=False."""
-    mean = x.mean(dim=1, keepdim=True)
-    var = x.var(dim=1, unbiased=False, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + eps)
+    """InstanceNorm1d over the token axis of [B, N, C], affine=False, its
+    statistics in :func:`_acc_dtype`."""
+    x32 = x.to(_acc_dtype(x))
+    mean = x32.mean(dim=1, keepdim=True)
+    var = x32.var(dim=1, unbiased=False, keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 def attention_propagation(p: AttentionPropagation, x: torch.Tensor,
@@ -118,19 +170,19 @@ def attention_propagation(p: AttentionPropagation, x: torch.Tensor,
     """One message-passing step; returns the delta (the caller adds the
     residual). Self-attention projects Q, K and V with one fused linear,
     cross-attention K and V."""
-    d = x.shape[-1]
+    d, dtype = x.shape[-1], x.dtype
     if x is source:
         w = torch.cat([p.proj_q.weight, p.proj_k.weight, p.proj_v.weight])
         bias = torch.cat([p.proj_q.bias, p.proj_k.bias, p.proj_v.bias])
-        q, k, v = F.linear(x, w, bias).split(d, dim=-1)
+        q, k, v = F.linear(x, w.to(dtype), bias.to(dtype)).split(d, dim=-1)
     else:
         w = torch.cat([p.proj_k.weight, p.proj_v.weight])
         bias = torch.cat([p.proj_k.bias, p.proj_v.bias])
-        k, v = F.linear(source, w, bias).split(d, dim=-1)
-        q = p.proj_q(x)
-    message = p.merge(linear_attention(q, k, v, num_heads))
-    h = p.mlp0(torch.cat([x, message], dim=-1))
-    return p.mlp1(F.relu(_instance_norm(h)))
+        k, v = F.linear(source, w.to(dtype), bias.to(dtype)).split(d, dim=-1)
+        q = _linear(x, p.proj_q)
+    message = _linear(linear_attention(q, k, v, num_heads), p.merge)
+    h = _linear(torch.cat([x, message], dim=-1), p.mlp0)
+    return _linear(F.relu(_instance_norm(h)), p.mlp1)
 
 
 def gats_layer(p: GATsLayer, h_2d: torch.Tensor, h_3d: torch.Tensor,
@@ -140,11 +192,14 @@ def gats_layer(p: GATsLayer, h_2d: torch.Tensor, h_3d: torch.Tensor,
     [B, N1, D]."""
     b, n1, d = h_3d.shape
     num_leaf = h_2d.shape[1] // n1
-    W, a = p.W, p.a
+    acc = _acc_dtype(h_3d)
+    W, a = p.W.to(h_3d.dtype), p.a.to(h_3d.dtype)
     h_2d_g = h_2d.reshape(b, n1, num_leaf, d)
     if cfg["with_linear_transform"]:
-        wh_2d = h_2d @ W
-        wh_3d = h_3d @ W
+        # the projections accumulate and stay in ``acc``
+        wh_2d = h_2d.to(acc) @ W.to(acc)
+        wh_3d = h_3d.to(acc) @ W.to(acc)
+        a = a.to(acc)
         a2d = (wh_2d @ a[:d]).reshape(b, n1, num_leaf)
         a3d = wh_3d @ a[d:]
         f_3d, f_2d = wh_3d, wh_2d.reshape(b, n1, num_leaf, d)
@@ -158,15 +213,17 @@ def gats_layer(p: GATsLayer, h_2d: torch.Tensor, h_3d: torch.Tensor,
 
     if cfg["include_self"]:
         e = torch.cat([a3d, a2d], dim=-1) + a3d              # [B, N1, 1+L]
-        att = torch.softmax(F.leaky_relu(e, 0.2), dim=-1)
-        feats = torch.cat([f_3d[:, :, None], f_2d], dim=2)
-        h_prime = torch.einsum("bnc,bncd->bnd", att, feats)
+        att = _softmax(_leaky_relu(e))
+        feats = torch.cat([f_3d[:, :, None].to(acc), f_2d.to(acc)], dim=2)
+        h_prime = torch.einsum("bnc,bncd->bnd", att.to(acc), feats)
         if cfg["additional"]:
             h_prime = h_prime + h_3d
     else:
-        att = torch.softmax(F.leaky_relu(a2d + a3d, 0.2), dim=-1)
-        h_prime = torch.einsum("bnc,bncd->bnd", att, f_2d) / 2.0 + f_3d
-    return F.elu(h_prime)
+        att = _softmax(_leaky_relu(a2d + a3d))
+        h_prime = torch.einsum("bnc,bncd->bnd", att.to(acc),
+                               f_2d.to(acc)) / 2.0 + f_3d
+    # the aggregation accumulates in ``acc``; back to the compute dtype
+    return F.elu(h_prime).to(h_3d.dtype)
 
 
 def _unit(x: torch.Tensor) -> torch.Tensor:
@@ -175,21 +232,26 @@ def _unit(x: torch.Tensor) -> torch.Tensor:
 
 
 def resolve_config(config: Optional[dict]) -> dict:
-    """DEFAULT_CONFIG updated with ``config``; refuses non-fp32 modes."""
+    """DEFAULT_CONFIG updated with ``config``; ``compute_dtype`` must be
+    one of :data:`COMPUTE_DTYPES`."""
     cfg = dict(DEFAULT_CONFIG)
     cfg.update(config or {})
-    if str(cfg["compute_dtype"]) != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg['compute_dtype']}: the PyTorch port runs "
-            "fp32 only; bf16 is ROADMAP Queue 1 item 7")
+    if str(cfg["compute_dtype"]) not in COMPUTE_DTYPES:
+        raise ValueError(
+            f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got "
+            f"{cfg['compute_dtype']!r}")
     return cfg
 
 
 def gnn_body(model: GATsSPG, data: Dict[str, torch.Tensor], cfg: dict):
     """The GNN stack + final projection + L2 norm → (mdesc2d [B,N1,D],
-    mdesc3d [B,N2,D]), in the dtype of the model's parameters (fp32; an
-    fp64 copy of a model gives a reference)."""
+    mdesc3d [B,N2,D]). The body computes in bf16 when ``compute_dtype``
+    says so, else in the dtype of the model's parameters (fp32; an fp64
+    copy of a model gives a reference); the descriptors it returns are
+    fp32 (or fp64) either way."""
     dtype = model.final_proj.weight.dtype
+    if str(cfg.get("compute_dtype", "float32")) == "bfloat16":
+        dtype = torch.bfloat16
     d2q = data["descriptors2d_query"].to(dtype)
     d3db = data["descriptors3d_db"].to(dtype)
     d2db = data["descriptors2d_db"].to(dtype)
@@ -217,7 +279,9 @@ def gnn_body(model: GATsSPG, data: Dict[str, torch.Tensor], cfg: dict):
             delta0 = attn_step(p, d2q, d3db)
             delta1 = attn_step(p, d3db, d2q)
             d2q, d3db = d2q + delta0, d3db + delta1
-    return _unit(model.final_proj(d2q)), _unit(model.final_proj(d3db))
+    out = model.final_proj.weight.dtype
+    return (_unit(_linear(d2q, model.final_proj).to(out)),
+            _unit(_linear(d3db, model.final_proj).to(out)))
 
 
 def _mutual_threshold(indices0, max0, indices1, max1, match_threshold,

@@ -8,9 +8,12 @@ full fp32 by default, but cuDNN convolutions run in TF32 (about three
 decimal digits) unless told otherwise, which would also break the parity
 of SuperPoint's keypoint selection with the fp32 reference.
 
-``pin_fp32`` sets all three switches. ``onepose_tpu_torch.pipeline`` calls
-it when it is imported and again when a ``PosePipeline`` is built;
-``fp32_pinned`` is what the tests assert.
+``pin_fp32`` sets all three switches, and a fourth for bf16 products
+(GATsSPG's bf16 mode): cuBLAS may otherwise reduce bf16 GEMMs' split-K
+partial sums in bf16, where the JAX package accumulates in fp32.
+``onepose_tpu_torch.pipeline`` calls it when it is imported and again
+when a ``PosePipeline`` is built; ``fp32_pinned`` is what the tests
+assert.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ def pin_fp32() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def fp32_pinned() -> bool:

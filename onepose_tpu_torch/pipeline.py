@@ -1,9 +1,11 @@
-"""Frame→pose inference pipeline on one device.
+"""Frame→pose inference pipeline.
 
-Port of ``onepose_tpu/pipeline.py`` without the mesh: SuperPoint
-extraction → GATsSPG 2D-3D matching (``forward_match_only``, through the
-fused dual-softmax kernel on a card) → batched LO-RANSAC PnP. Everything
-stays on the pipeline's device between the image upload and the poses.
+Port of ``onepose_tpu/pipeline.py``: SuperPoint extraction → GATsSPG 2D-3D
+matching (``forward_match_only``, through the fused dual-softmax kernel on
+a card) → batched LO-RANSAC PnP. Everything stays on the pipeline's device
+between the image upload and the poses. With ``mesh=`` (a world of ranks,
+one card each, ``parallel/mesh.py``) the batch is split over the data
+axis and every rank returns the whole batch's outputs.
 
 Importing this module pins fp32 (``ops.precision.pin_fp32``): the PnP
 solvers need it, and cuDNN would otherwise run the convs in TF32.
@@ -12,13 +14,14 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from onepose_tpu_torch.datasets.anno import ObjectDB
 from onepose_tpu_torch.models import gats_spg, superpoint
 from onepose_tpu_torch.ops import epnp
 from onepose_tpu_torch.ops.precision import pin_fp32
+from onepose_tpu_torch.parallel import collectives as comm
+from onepose_tpu_torch.parallel import mesh as pmesh
 
 pin_fp32()
 
@@ -108,11 +111,39 @@ def frame_step(sp_model: superpoint.SuperPoint,
     )
 
 
+def gather_rows(mesh, out: PoseOutput) -> PoseOutput:
+    """Each rank's rows of a batch's outputs all-gathered over ``mesh``'s
+    data axis, in batch order: every rank gets the whole batch."""
+    group = pmesh.axis_group(mesh, "data")
+    return PoseOutput(*(comm.all_gather(x, group).flatten(0, 1) for x in out))
+
+
+def rank_rows(mesh, n: int, noise: Optional[epnp.RansacNoise],
+              generator: Optional[torch.Generator], n_kpts: int,
+              num_hypotheses: int, device) -> tuple:
+    """(this rank's rows of a batch of ``n``, their RANSAC noise). The
+    noise is the global batch's (``noise``, or drawn from ``generator`` as
+    one process draws it for the whole batch), so that a world of any size
+    reproduces one rank's run."""
+    rows = pmesh.data_rows(mesh, n)
+    if noise is None:
+        noise = epnp.draw_noise(n, n_kpts, num_hypotheses, 64, generator,
+                                device=device)
+    return rows, epnp.RansacNoise(*(x[rows] for x in noise))
+
+
 class PosePipeline:
     """One object's pose estimator: the two models and the object's 3D
     descriptor DB on ``device``, and a batched frame→pose call. The
     device is the card unless the caller names another; without a card
-    the default raises."""
+    the default raises.
+
+    ``mesh`` (``parallel/mesh.py``, ("data", "model") axes over a world
+    of ranks): the models and the DB are broadcast from rank 0, each rank
+    runs its rows of the batch on its card (the data-axis size must
+    divide the batch), and the outputs are all-gathered, so every rank
+    returns the whole batch's. A model axis above 1 raises (it would shard
+    the matcher's 3D tokens, ``parallel.mesh.TOKEN_AXIS_TODO``)."""
 
     def __init__(self, sp_model: superpoint.SuperPoint,
                  gats_model: gats_spg.GATsSPG, db: ObjectDB,
@@ -121,7 +152,11 @@ class PosePipeline:
                  reproj_threshold: float = 5.0,
                  num_hypotheses: int = 512,
                  refine_iters: int = 5,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 mesh=None):
+        if pmesh.axis_size(mesh, "model") > 1:
+            raise NotImplementedError(
+                f"PosePipeline(mesh=...): {pmesh.TOKEN_AXIS_TODO}")
         pin_fp32()
         self.sp_config = dict(superpoint.DEFAULT_CONFIG)
         self.sp_config.update(sp_config or {})
@@ -130,18 +165,13 @@ class PosePipeline:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("PosePipeline: no CUDA device; pass "
                                "device='cpu' to run on the CPU")
-        self.sp_model = sp_model.to(self.device).eval()
-        self.gats_model = gats_model.to(self.device).eval()
-
-        def put(x):
-            return torch.as_tensor(np.asarray(x), device=self.device)
-
-        self.db = {
-            "keypoints3d": put(db.keypoints3d),
-            "descriptors3d": put(db.descriptors3d),
-            "descriptors2d_db": put(db.descriptors2d_db),
-            "mask3d": put(db.mask3d),
-        }
+        self.mesh = mesh
+        db = {k: getattr(db, k) for k in (
+            "keypoints3d", "descriptors3d", "descriptors2d_db", "mask3d")}
+        self.sp_model = pmesh.replicate(mesh, sp_model, self.device).eval()
+        self.gats_model = pmesh.replicate(mesh, gats_model,
+                                          self.device).eval()
+        self.db = pmesh.replicate(mesh, db, self.device)
         self.reproj_threshold = reproj_threshold
         self.num_hypotheses = num_hypotheses
         self.refine_iters = refine_iters
@@ -175,13 +205,33 @@ class PosePipeline:
                  noise: Optional[epnp.RansacNoise] = None) -> PoseOutput:
         """images [B, H, W, 1] float in [0, 1]; Ks [B, 3, 3]. RANSAC's
         sampling noise is ``noise`` when given, else drawn from
-        ``generator`` (a generator on the pipeline's device)."""
-        images = torch.as_tensor(images, dtype=torch.float32,
-                                 device=self.device)
-        Ks = torch.as_tensor(Ks, dtype=torch.float32, device=self.device)
-        return frame_step(
+        ``generator`` (a generator on the pipeline's device). Under a mesh
+        every rank passes the whole batch (and the same ``noise``, or a
+        generator in the same state) and gets the whole batch's outputs."""
+        images = torch.as_tensor(images, dtype=torch.float32)
+        Ks = torch.as_tensor(Ks, dtype=torch.float32)
+        rows = pmesh.data_rows(self.mesh, images.shape[0])
+        return self.run_rows(images[rows].to(self.device),
+                             Ks[rows].to(self.device), generator, noise)
+
+    @torch.no_grad()
+    def run_rows(self, images: torch.Tensor, Ks: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 noise: Optional[epnp.RansacNoise] = None) -> PoseOutput:
+        """The frame step on this rank's rows of a batch (under a mesh,
+        ``pmesh.data_rows`` of it; else the whole batch), already on the
+        pipeline's device. ``noise`` is the whole batch's, or drawn for
+        the whole batch from ``generator``; the outputs are the whole
+        batch's."""
+        if self.mesh is not None:
+            n = images.shape[0] * pmesh.axis_size(self.mesh, "data")
+            _, noise = rank_rows(self.mesh, n, noise, generator,
+                                 self.sp_config["max_keypoints"],
+                                 self.num_hypotheses, self.device)
+        out = frame_step(
             self.sp_model, self.gats_model, self.rows(images.shape[0]),
             images, Ks, self.sp_config, self.gats_config, noise=noise,
             generator=generator, reproj_threshold=self.reproj_threshold,
             num_hypotheses=self.num_hypotheses,
             refine_iters=self.refine_iters)
+        return out if self.mesh is None else gather_rows(self.mesh, out)

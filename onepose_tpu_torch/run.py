@@ -7,8 +7,10 @@ repository's ``run.py``: dispatches on ``cfg.type``.
 ``sfm`` builds each listed object's DB (``sfm/runner.py::run_sfm``) on
 the device the config key ``device`` names (default ``cuda``; there is no
 quiet CPU fallback), with SuperPoint and SuperGlue loaded from the
-reference checkpoints the config names. ``merge_anno`` merges the
-objects' annotation files into one training index.
+reference checkpoints the config names; ``n_devices=N`` spawns N ranks,
+one card each, that extract and match data-parallel
+(``parallel/launch.py::run_local``). ``merge_anno`` merges the objects'
+annotation files into one training index.
 """
 from __future__ import annotations
 
@@ -22,12 +24,28 @@ def _read_list(path):
 
 
 def sfm(cfg):
+    import torch
+
+    from onepose_tpu_torch.parallel import collectives as comm, launch
+
+    n_dev = int(cfg.get("n_devices", 1) or 1)
+    if n_dev > 1 and comm.get_world_size() == 1:
+        launch.run_local(_sfm, n_dev, cfg,
+                         device=torch.device(cfg.get("device", "cuda")).type)
+    else:
+        _sfm(cfg)
+
+
+def _sfm(cfg):
+    """``sfm`` on one rank of a world of one or more."""
+    from onepose_tpu_torch.parallel import collectives as comm
+    from onepose_tpu_torch.parallel import mesh as pmesh
     from onepose_tpu_torch.sfm import runner
     from onepose_tpu_torch.utils import model_io
 
-    if int(cfg.get("n_devices", 1) or 1) > 1:
-        raise NotImplementedError("run sfm: n_devices > 1 (several cards) "
-                                  "is not ported")
+    world = comm.get_world_size()
+    mesh = pmesh.make_mesh(world) if world > 1 else None
+    log = print if comm.is_main_process() else (lambda *a: None)
     sp_model = model_io.load_superpoint(cfg.network.detection_model_path)
     sg_model = model_io.load_superglue(cfg.network.matching_model_path)
     device = cfg.get("device", "cuda")
@@ -36,12 +54,12 @@ def sfm(cfg):
         obj_dir, *seqs = entry.split(" ")
         root_dir = osp.join(cfg.scan_data_dir, obj_dir)
         data_dirs = [osp.join(root_dir, s) for s in seqs]
-        print(f"[sfm] processing {root_dir}")
+        log(f"[sfm] processing {root_dir}")
 
         img_lists = runner.gather_img_lists(
             data_dirs, down_ratio=cfg.sfm.down_ratio)
         if not img_lists:
-            print(f"[sfm] no images in {root_dir}")
+            log(f"[sfm] no images in {root_dir}")
             continue
         Ks, poses, sizes = runner.load_sequence_calib(img_lists)
 
@@ -55,8 +73,8 @@ def sfm(cfg):
             box_path=box_path if osp.exists(box_path) else None,
             covis_num=cfg.sfm.covis_num,
             max_num_points=cfg.dataset.max_num_kp3d, redo=cfg.redo,
-            device=device)
-        print(f"[sfm] {obj_name}: {stats}")
+            device=device, mesh=mesh)
+        log(f"[sfm] {obj_name}: {stats}")
 
 
 def merge_anno(cfg):

@@ -1,11 +1,18 @@
-"""Multi-object pose serving on one device.
+"""Multi-object pose serving.
 
-Port of ``onepose_tpu/serving.py`` without the mesh. All object DBs share
-one static ``shape3d`` and ``num_leaf`` and stay resident on the device,
-stacked [O, ...]; each request carries an object index, and the serve step
+Port of ``onepose_tpu/serving.py``. All object DBs share one static
+``shape3d`` and ``num_leaf`` and stay resident on the device, stacked
+[O, ...]; each request carries an object index, and the serve step
 gathers each request's DB row (``index_select``), so a mixed-object batch
 runs in one pass: SuperPoint extraction, GATsSPG matching through the
 fused match kernel with a DB per batch element, batched LO-RANSAC PnP.
+
+With ``mesh=`` (``parallel/mesh.py``: a world of ranks, one card each)
+requests are split over the data axis and the catalog over the model
+axis along the object dimension, padded to a multiple of it by repeating
+the last object, so each rank holds only its objects; a request's DB row
+is all-gathered across the model group from the rank that holds it, and
+the outputs across the data group.
 
 APIs: ``infer_batch`` (synchronous), ``infer_many`` (a staging thread
 uploads batches ahead of the launches while results drain in a bounded
@@ -35,7 +42,10 @@ from onepose_tpu_torch.datasets.anno import ObjectDB
 from onepose_tpu_torch.models import gats_spg, superpoint
 from onepose_tpu_torch.ops import epnp
 from onepose_tpu_torch.ops.precision import pin_fp32
-from onepose_tpu_torch.pipeline import PoseOutput, frame_step
+from onepose_tpu_torch.parallel import collectives as comm
+from onepose_tpu_torch.parallel import mesh as pmesh
+from onepose_tpu_torch.pipeline import (PoseOutput, frame_step, gather_rows,
+                                        rank_rows)
 from onepose_tpu_torch.runtime import loader
 
 DB_KEYS = ("keypoints3d", "descriptors3d", "descriptors2d_db", "mask3d")
@@ -67,6 +77,25 @@ def serve_step(sp_model: superpoint.SuperPoint, gats_model: gats_spg.GATsSPG,
                       gats_config, **pnp_kw)
 
 
+def fetch_rows(db_shard: Dict[str, torch.Tensor], obj_idx: torch.Tensor,
+               first: int, group) -> Dict[str, torch.Tensor]:
+    """The DB rows of objects ``obj_idx`` [b] from a catalog sharded over
+    ``group`` (the model axis): this rank holds objects ``first`` ..
+    ``first + len(db_shard)`` - 1, the ranks of the group hold equal
+    consecutive slices in group order. Every rank picks the rows it holds
+    (a clamped row where it holds none), the picks are all-gathered and
+    each request takes the pick of the rank that holds its object."""
+    per = next(iter(db_shard.values())).shape[0]
+    owner = torch.div(obj_idx, per, rounding_mode="floor")
+    local = (obj_idx - first).clamp(0, per - 1)
+    rows = {}
+    for key, v in db_shard.items():
+        picks = comm.all_gather(v.index_select(0, local), group)
+        rows[key] = picks[owner, torch.arange(obj_idx.shape[0],
+                                              device=obj_idx.device)]
+    return rows
+
+
 class PoseRequest(NamedTuple):
     object_name: str
     image: np.ndarray   # [H, W] grayscale in [0, 1]
@@ -83,7 +112,14 @@ class _Staged(NamedTuple):
 
 class PoseServer:
     """Multi-object pose server on one device (the card unless the caller
-    names another; without a card the default raises)."""
+    names another; without a card the default raises), or over a mesh.
+
+    Under a mesh every call that serves a batch (``run``, ``infer_batch``,
+    ``infer_many``) is collective: every rank makes it with the same
+    requests and gets every result. The single-object fast path is off
+    under a mesh (the object's row lives on one model shard), and the
+    worker thread of ``start`` / ``submit`` needs a world of one
+    (``parallel/serve_launch.py`` serves several processes)."""
 
     def __init__(self, sp_model: superpoint.SuperPoint,
                  gats_model: gats_spg.GATsSPG,
@@ -103,11 +139,8 @@ class PoseServer:
         half the device memory per object and half the gather traffic;
         match sets can shift at threshold boundaries. keypoints3d stay fp32.
         A batch whose requests all name one object takes that object's DB
-        row once (see :func:`serve_step`)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "PoseServer(mesh=...): the PyTorch port serves on one device; "
-                "multi-GPU serving is ROADMAP Queue 1 item 13")
+        row once (see :func:`serve_step`), off a mesh. ``mesh``: see the
+        module docstring; the data-axis size must divide ``batch_size``."""
         if not object_dbs:
             raise ValueError("need at least one object DB")
         shapes = {db.keypoints3d.shape[0] for db in object_dbs.values()}
@@ -118,6 +151,10 @@ class PoseServer:
                 f"(got shapes {shapes}, num_leaf {leaves})")
         if db_dtype not in STORE_DTYPES:
             raise ValueError(f"db_dtype must be one of {sorted(STORE_DTYPES)}")
+        n_data, n_model = (pmesh.axis_size(mesh, a) for a in ("data", "model"))
+        if batch_size % n_data:
+            raise ValueError(f"batch_size {batch_size} not divisible by data "
+                             f"axis {n_data}")
         pin_fp32()
         device = torch.device(device)
         if device.type == "cuda":
@@ -129,17 +166,25 @@ class PoseServer:
                 device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
 
+        self.mesh = mesh
         self.names = sorted(object_dbs)
         self.name_to_idx = {n: i for i, n in enumerate(self.names)}
+        # this rank's slice of the catalog: all of it off a mesh; under one
+        # the object axis padded to a multiple of the model axis by
+        # repeating the last object, then split over it
+        per = -(-len(self.names) // n_model)
+        self.first_object = pmesh.axis_index(mesh, "model") * per
+        own = [self.names[min(i, len(self.names) - 1)] for i in range(
+            self.first_object, self.first_object + per)]
         self.db_stack = {}
         for key in DB_KEYS:
             arr = torch.from_numpy(np.stack(
-                [np.asarray(getattr(object_dbs[n], key)) for n in self.names]))
+                [np.asarray(getattr(object_dbs[n], key)) for n in own]))
             if key in DESCRIPTOR_KEYS:
                 arr = arr.to(STORE_DTYPES[db_dtype])
             self.db_stack[key] = arr.to(device)
-        self.sp_model = sp_model.to(device).eval()
-        self.gats_model = gats_model.to(device).eval()
+        self.sp_model = pmesh.replicate(mesh, sp_model, device).eval()
+        self.gats_model = pmesh.replicate(mesh, gats_model, device).eval()
 
         self.sp_config = dict(superpoint.DEFAULT_CONFIG)
         self.sp_config.update(sp_config or {})
@@ -178,7 +223,7 @@ class PoseServer:
         """Pad to the static batch size and, with ``to_device``, start the
         upload (``loader.DeviceStager``: pinned memory, a side stream)."""
         images, Ks, obj_idx, n_real = self._encode_host(requests)
-        uniform = bool((obj_idx == obj_idx[0]).all())
+        uniform = self.mesh is None and bool((obj_idx == obj_idx[0]).all())
         arrays = {"images": images, "Ks": Ks, "obj_idx": obj_idx}
         staged = (self._stager(arrays) if to_device else loader.Staged(
             {k: torch.from_numpy(v) for k, v in arrays.items()}, None))
@@ -191,14 +236,27 @@ class PoseServer:
         else drawn from the server's generator."""
         arrays = {k: t.to(self.device)
                   for k, t in staged.arrays.wait().items()}
-        return serve_step(
-            self.sp_model, self.gats_model, self.db_stack,
-            arrays["obj_idx"], arrays["images"], arrays["Ks"],
-            self.sp_config, self.gats_config, uniform=staged.uniform,
-            noise=noise, generator=None if noise is not None
-            else self.generator, reproj_threshold=self.reproj_threshold,
-            num_hypotheses=self.num_hypotheses,
-            refine_iters=self.refine_iters)
+        pnp_kw = dict(reproj_threshold=self.reproj_threshold,
+                      num_hypotheses=self.num_hypotheses,
+                      refine_iters=self.refine_iters)
+        if self.mesh is None:
+            return serve_step(
+                self.sp_model, self.gats_model, self.db_stack,
+                arrays["obj_idx"], arrays["images"], arrays["Ks"],
+                self.sp_config, self.gats_config, uniform=staged.uniform,
+                noise=noise, generator=None if noise is not None
+                else self.generator, **pnp_kw)
+        rows, noise = rank_rows(
+            self.mesh, self.batch_size, noise, self.generator,
+            self.sp_config["max_keypoints"], self.num_hypotheses, self.device)
+        db_rows = fetch_rows(self.db_stack, arrays["obj_idx"][rows],
+                             self.first_object,
+                             pmesh.axis_group(self.mesh, "model"))
+        out = frame_step(self.sp_model, self.gats_model, db_rows,
+                         arrays["images"][rows], arrays["Ks"][rows],
+                         self.sp_config, self.gats_config, noise=noise,
+                         **pnp_kw)
+        return gather_rows(self.mesh, out)
 
     @staticmethod
     def _fetch(out: PoseOutput, n_real: int) -> List[dict]:
@@ -259,6 +317,10 @@ class PoseServer:
 
     # -- async API ------------------------------------------------------
     def start(self):
+        if self.mesh is not None and comm.get_world_size() > 1:
+            raise ValueError("PoseServer.start: the worker thread serves from "
+                             "one process; serve a world of several with "
+                             "parallel/serve_launch.py::serve_forever")
         self._worker = threading.Thread(target=self._serve_loop,
                                         daemon=True)
         self._worker.start()

@@ -57,17 +57,23 @@ def extract_to_h5(sp_model, img_lists: List[str], feature_out: str,
     ``feature_out`` (HDF5) with ``sp_model`` (a ``SuperPoint``) on
     ``device``. ``images`` optionally holds grayscale float arrays in
     [0, 1] keyed by path (in-memory runs); the others are read from disk
-    and resized to the conf's 512x512. ``mesh`` (several cards) is not
-    ported and raises."""
+    and resized to the conf's 512x512. ``mesh``: the batches are split
+    over its data axis (module docstring; collective: every rank calls
+    this, and ``batch_size`` must be a multiple of the data axis)."""
+    import contextlib
+
     from onepose_tpu_torch.utils import hdf5
 
     from onepose_tpu_torch.models import superpoint
     from onepose_tpu_torch.ops.precision import pin_fp32
+    from onepose_tpu_torch.parallel import collectives as comm
+    from onepose_tpu_torch.parallel import mesh as pmesh
     from onepose_tpu_torch.sfm import resolve_device
 
-    if mesh is not None:
-        raise NotImplementedError("extract_to_h5: mesh= (several cards) is "
-                                  "not ported")
+    n_data = pmesh.axis_size(mesh, "data")
+    if batch_size % n_data:
+        raise ValueError(f"batch_size {batch_size} not divisible by data "
+                         f"axis {n_data}")
     device = resolve_device(device, "extract_to_h5")
     pin_fp32()
     conf = conf or CONFS["superpoint"]
@@ -75,20 +81,31 @@ def extract_to_h5(sp_model, img_lists: List[str], feature_out: str,
     resize_hw = (prep["resize_h"], prep["resize_w"])
     sp_cfg = dict(conf["conf"])
     sp_cfg.pop("descriptor_dim", None)
-    sp_model = sp_model.to(device).eval()
+    sp_model = pmesh.replicate(mesh, sp_model, device).eval()
+    main = comm.is_main_process()
 
-    with hdf5.File(feature_out, "w") as f:
+    with (hdf5.File(feature_out, "w") if main
+          else contextlib.nullcontext()) as f:
         for start in range(0, len(img_lists), batch_size):
             chunk = img_lists[start:start + batch_size]
+            # a tail padded by repeating its last image, split over ranks
+            padded = chunk + chunk[-1:] * (-len(chunk) % n_data)
             arrs = [np.asarray(images[p], np.float32)
                     if images is not None and p in images
-                    else load_gray(p, resize_hw) for p in chunk]
+                    else load_gray(p, resize_hw)
+                    for p in padded[pmesh.data_rows(mesh, len(padded))]]
             batch = torch.from_numpy(np.stack(arrs)[..., None]).to(device)
             out = superpoint.extract(sp_model, batch, sp_cfg)
             # one copy a batch: [B, K, 4 + D] of (x, y, score, valid, desc)
             packed = torch.cat([out.keypoints, out.scores[..., None],
                                 out.mask[..., None].float(),
-                                out.descriptors], dim=-1).cpu().numpy()
+                                out.descriptors], dim=-1)
+            if mesh is not None:
+                packed = comm.all_gather(
+                    packed, pmesh.axis_group(mesh, "data")).flatten(0, 1)
+            if not main:
+                continue
+            packed = packed.cpu().numpy()
             for bi, path in enumerate(chunk):
                 rows = packed[bi][packed[bi, :, 3] > 0]
                 grp = f.create_group(path)
@@ -96,6 +113,8 @@ def extract_to_h5(sp_model, img_lists: List[str], feature_out: str,
                 grp.create_dataset("scores", data=rows[:, 2])
                 grp.create_dataset("descriptors",
                                    data=np.ascontiguousarray(rows[:, 4:].T))
+                # a batch's images share one size
                 grp.create_dataset("image_size",
-                                   data=np.array(arrs[bi].shape[::-1]))
+                                   data=np.array(arrs[0].shape[::-1]))
+    comm.synchronize()   # the file is whole before any rank reads it
     return feature_out

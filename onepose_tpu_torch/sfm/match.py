@@ -8,6 +8,10 @@ as the reference does. Pairs are matched in batches of 8 through
 keypoint counts padded up to shared bucket sizes (``BUCKETS``): padded
 descriptors are ones, padded slots masked by ``mask0`` / ``mask1``. A
 batch's matches come back to the host in one copy.
+
+With ``mesh=`` (``parallel/mesh.py``) each batch of pairs is padded to a
+multiple of the data axis by repeating its last pair and split over it;
+the matches are all-gathered and rank 0 alone writes the file.
 """
 from __future__ import annotations
 
@@ -56,21 +60,29 @@ def match_pairs_to_h5(sg_model, pairs: Sequence[Tuple[str, str]],
                       device="cuda", mesh=None) -> str:
     """Match each (name0, name1) pair with ``sg_model`` (a ``SuperGlue``)
     on ``device``, from the features in ``feature_path``, into
-    ``match_out``. ``mesh`` (several cards) is not ported and raises."""
+    ``match_out``. ``mesh``: the pair batches are split over its data axis
+    (module docstring; collective, and ``batch_size`` must be a multiple
+    of the data axis)."""
+    import contextlib
+
     from onepose_tpu_torch.utils import hdf5
 
     from onepose_tpu_torch.models import superglue
     from onepose_tpu_torch.ops.precision import pin_fp32
+    from onepose_tpu_torch.parallel import collectives as comm
+    from onepose_tpu_torch.parallel import mesh as pmesh
     from onepose_tpu_torch.sfm import resolve_device
 
-    if mesh is not None:
-        raise NotImplementedError("match_pairs_to_h5: mesh= (several cards) "
-                                  "is not ported")
+    n_data = pmesh.axis_size(mesh, "data")
+    if batch_size % n_data:
+        raise ValueError(f"batch_size {batch_size} not divisible by data "
+                         f"axis {n_data}")
     device = resolve_device(device, "match_pairs_to_h5")
     pin_fp32()
     sg_conf = dict(CONF)
     sg_conf.update(conf or {})
-    sg_model = sg_model.to(device).eval()
+    sg_model = pmesh.replicate(mesh, sg_model, device).eval()
+    main = comm.is_main_process()
 
     # dedup symmetric pairs (the reference's match_features.py:47-56)
     seen = set()
@@ -102,12 +114,16 @@ def match_pairs_to_h5(sg_model, pairs: Sequence[Tuple[str, str]],
         groups.setdefault((b0, b1, s0, s1), []).append((name0, name1))
 
     keys = ("keypoints", "scores", "descriptors", "mask")
-    with hdf5.File(match_out, "w") as out:
+    with (hdf5.File(match_out, "w") if main
+          else contextlib.nullcontext()) as out:
         for (b0, b1, s0, s1), group_pairs in groups.items():
             for start in range(0, len(group_pairs), batch_size):
                 chunk = group_pairs[start:start + batch_size]
+                # a tail padded by repeating its last pair, split over ranks
+                padded = chunk + chunk[-1:] * (-len(chunk) % n_data)
                 data = {f"{k}{i}": [] for i in "01" for k in keys}
-                for name0, name1 in chunk:
+                for name0, name1 in padded[pmesh.data_rows(mesh,
+                                                           len(padded))]:
                     for i, name, b in (("0", name0, b0), ("1", name1, b1)):
                         f = feats[name]
                         for k, v in zip(keys, _pad_feats(
@@ -120,7 +136,13 @@ def match_pairs_to_h5(sg_model, pairs: Sequence[Tuple[str, str]],
                 res = superglue.forward(sg_model, batch, sg_conf)
                 # one copy a batch; indices < 2^24 are exact in fp32
                 packed = torch.stack([res.matches0.float(),
-                                      res.matching_scores0], -1).cpu().numpy()
+                                      res.matching_scores0], -1)
+                if mesh is not None:
+                    packed = comm.all_gather(
+                        packed, pmesh.axis_group(mesh, "data")).flatten(0, 1)
+                if not main:
+                    continue
+                packed = packed.cpu().numpy()
                 for bi, (name0, name1) in enumerate(chunk):
                     n0 = feats[name0]["keypoints"].shape[0]
                     grp = out.create_group(names_to_pair(name0, name1))
@@ -128,4 +150,5 @@ def match_pairs_to_h5(sg_model, pairs: Sequence[Tuple[str, str]],
                         "matches0", data=packed[bi, :n0, 0].astype(np.int32))
                     grp.create_dataset(
                         "matching_scores0", data=packed[bi, :n0, 1])
+    comm.synchronize()   # the file is whole before any rank reads it
     return match_out

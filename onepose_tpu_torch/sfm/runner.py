@@ -4,7 +4,10 @@ with file-granular resumability (outputs that exist are reused unless
 ``redo``).
 
 Port of ``onepose_tpu/sfm/runner.py``; the device stages run on the card
-unless the caller names another device.
+unless the caller names another device. With ``mesh=`` extraction and
+matching run data-parallel over the mesh's ranks; the host stages run on
+rank 0 while the others wait, and the outputs directory must be one that
+every rank sees.
 """
 from __future__ import annotations
 
@@ -74,36 +77,59 @@ def run_sfm(img_lists: Sequence[str], outputs_dir: str, sp_model,
     ``SuperPoint``) and ``sg_model`` (a ``SuperGlue``). Ks/poses/sizes are
     keyed by image path; ``images`` optionally supplies in-memory
     grayscale arrays. An output file that exists is reused unless
-    ``redo``. ``mesh`` (several cards) is not ported and raises.
-    ``mark``, when given, is called with each stage's name as it ends."""
-    if mesh is not None:
-        raise NotImplementedError("run_sfm: mesh= (several cards) is not "
-                                  "ported")
+    ``redo``. ``mesh``: extraction and matching split over its data axis
+    (collective: every rank calls this); the stats on rank 0, None on the
+    others. ``mark``, when given, is called with each stage's name as it
+    ends."""
+    import torch
+
+    from onepose_tpu_torch.parallel import collectives as comm
+
     device = resolve_device(device, "run_sfm")
     mark = mark or (lambda name: None)
-    os.makedirs(outputs_dir, exist_ok=True)
+    main = comm.is_main_process()
+    if main:
+        os.makedirs(outputs_dir, exist_ok=True)
     lay = sfm_outputs_layout(outputs_dir, covis_num)
 
-    if redo or not osp.exists(lay["feature_out"]):
+    def todo(path) -> bool:
+        """Rank 0's decision to (re)make ``path``, for every rank."""
+        flag = torch.tensor([redo or not osp.exists(path)])
+        return bool(comm.broadcast(flag.to(comm.comm_device()), 0))
+
+    if todo(lay["feature_out"]):
         extract.extract_to_h5(sp_model, img_lists, lay["feature_out"],
-                              images=images, device=device)
+                              images=images, device=device, mesh=mesh)
     mark("extract")
 
-    if redo or not osp.exists(lay["covis_pairs_out"]):
+    if main and (redo or not osp.exists(lay["covis_pairs_out"])):
         Rs = np.stack([np.asarray(poses[p])[:3, :3] for p in img_lists])
         ts = np.stack([np.asarray(poses[p])[:3, 3] for p in img_lists])
         pair_list = pairs_mod.covis_pairs(
             img_lists, num_matched=covis_num, poses=(Rs, ts))
         pairs_mod.write_pairs(pair_list, lay["covis_pairs_out"])
+    comm.synchronize()
     pair_list = pairs_mod.read_pairs(lay["covis_pairs_out"])
     mark("pairs")
 
-    if redo or not osp.exists(lay["matches_out"]):
+    if todo(lay["matches_out"]):
         match.match_pairs_to_h5(
             sg_model, pair_list, lay["feature_out"], lay["matches_out"],
-            device=device)
+            device=device, mesh=mesh)
     mark("match")
+    if not main:   # the host stages run on rank 0
+        comm.synchronize()
+        return None
+    stats = _host_stages(img_lists, lay, pair_list, Ks, poses, sizes,
+                         box_path, max_num_points, redo, device, mark)
+    comm.synchronize()
+    return stats
 
+
+def _host_stages(img_lists, lay, pair_list, Ks, poses, sizes, box_path,
+                 max_num_points, redo, device, mark) -> dict:
+    """The stages after matching: the empty model, verification, the
+    database, triangulation and postprocess."""
     # posed-but-pointless model (reference generate_empty.py artifact)
     if redo or not osp.exists(lay["empty_dir"]):
         from onepose_tpu_torch.utils import colmap_io

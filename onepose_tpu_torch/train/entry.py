@@ -14,7 +14,17 @@ run on this entry's path), epoch checkpoints as torch files that
 
 The config key ``device`` names the torch device (default ``cuda``; there
 is no quiet CPU fallback: without a card it raises); ``device=cpu`` trains
-on the CPU. One device only: ``parallel.n_devices`` above 1 raises.
+on the CPU.
+
+Several cards, as the root entry's data mesh: ``parallel.n_devices`` (null:
+every local card, one on the CPU) spawns that many ranks, one card each
+(``parallel/launch.py::run_local``); with ``parallel.coordinator``,
+``num_processes`` and ``process_id`` (or ``ONEPOSE_*``) this process joins
+a world of several hosts as one rank instead. Every rank iterates the same
+seeded batch order and trains on its rows (``lo:hi``) of each global batch
+with the global batch's step (``trainer.train_step``); rank 0 owns the
+checkpoints, the logger, the prints and validation, and every rank waits
+for it at each epoch's end. A resume reads the same file on every rank.
 """
 from __future__ import annotations
 
@@ -40,11 +50,6 @@ def _gats_config(cfg) -> dict:
 
 
 def _device(cfg) -> torch.device:
-    n_devices = cfg.get_path("parallel.n_devices")
-    if n_devices is not None and int(n_devices) > 1:
-        raise NotImplementedError(
-            f"parallel.n_devices={n_devices}: the port trains on one device "
-            "(multi-GPU training is ROADMAP Queue 1 item 4)")
     device = torch.device(cfg.get("device", "cuda"))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: no CUDA device; pass device=cpu to train "
@@ -62,9 +67,49 @@ def train(cfg, model=None,
     (else one made from ``cfg.seed``); ``leaf_uniform`` maps a batch's leaf
     seeds to its [B, num_leaf, shape3d] uniforms (default
     ``trainer.leaf_uniforms``; the tests inject the JAX package's draws).
+    With several ranks spawned here, what rank 0 returned (its tensors on
+    the CPU); a rank of a world of several hosts returns its own.
     """
+    from onepose_tpu_torch.parallel import collectives as comm
+    from onepose_tpu_torch.parallel import launch
+
+    device = _device(cfg)
+    launch.maybe_initialize(cfg.get("parallel"), device=device)
+    n = cfg.get_path("parallel.n_devices")
+    if n is None:
+        n = torch.cuda.device_count() if device.type == "cuda" else 1
+    n = int(n)
+    if comm.get_world_size() > 1 or n == 1:
+        return _train(cfg, model, leaf_uniform)
+    _check_batch(cfg.datamodule.batch_size, n)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    print(f"[train] {n} ranks on {cards or 'no'} card(s), "
+          f"{launch.pick_backend(device.type, n, cards)}")
+    return launch.run_local(_train_rank, n, cfg, model, leaf_uniform,
+                            device=device.type)[0]
+
+
+def _check_batch(global_bs: int, world: int) -> None:
+    if global_bs % world:
+        raise ValueError(
+            f"batch_size {global_bs} not divisible by {world} processes")
+
+
+def _train_rank(cfg, model, leaf_uniform):
+    """A spawned rank of :func:`train`: rank 0's result, None elsewhere
+    (every rank holds the same state)."""
+    from onepose_tpu_torch.parallel import collectives as comm
+
+    out = _train(cfg, model, leaf_uniform)
+    return out if comm.is_main_process() else None
+
+
+def _train(cfg, model=None, leaf_uniform=None):
+    """The training loop of one rank (of a world of one or more)."""
     from onepose_tpu_torch.datasets.gats_dataset import GATsSPGDataset
     from onepose_tpu_torch.ops.precision import pin_fp32
+    from onepose_tpu_torch.parallel import collectives as comm
+    from onepose_tpu_torch.parallel import mesh as pmesh
     from onepose_tpu_torch.runtime.loader import DeviceStager, stage_ahead
     from onepose_tpu_torch.train import trainer
     from onepose_tpu_torch.train.logging import MetricLogger
@@ -72,6 +117,9 @@ def train(cfg, model=None,
 
     device = _device(cfg)
     pin_fp32()
+    world, rank = comm.get_world_size(), comm.get_rank()
+    is_main = rank == 0
+    mesh = pmesh.make_mesh(world) if world > 1 else None
     gats_cfg = _gats_config(cfg)
     dm = cfg.datamodule
     train_ds = GATsSPGDataset(
@@ -90,25 +138,37 @@ def train(cfg, model=None,
         accumulate_steps=cfg.trainer.accumulate_grad_batches)
     state = trainer.init_train_state(tx, gats_cfg, model=model,
                                      seed=cfg.seed, device=device)
+    global_bs = dm.batch_size
+    _check_batch(global_bs, world)
+    lo, hi = rank * (global_bs // world), (rank + 1) * (global_bs // world)
+    if is_main:
+        print(f"[train] world {world}, rank {rank}: rows {lo}:{hi} of each "
+              f"batch of {global_bs}")
 
     start_epoch = 0
     latest = (model_io.latest_checkpoint(cfg.checkpoint.dirpath)
               if cfg.get("resume", True) else None)
-    if latest is not None:
+    if latest is not None:   # every rank reads the same file
         model_io.load_train_state(latest, state)
         start_epoch = int(re.search(r"epoch=(\d+)",
                                     osp.basename(latest)).group(1)) + 1
-        print(f"[train] resumed from {latest} (epoch {start_epoch})")
+        if is_main:
+            print(f"[train] resumed from {latest} (epoch {start_epoch})")
+    elif mesh is not None:   # rank 0's initial parameters on every rank
+        pmesh.replicate(mesh, state.model, device)
 
-    os.makedirs(cfg.checkpoint.dirpath, exist_ok=True)
-    logger = MetricLogger(
-        cfg.logging.log_dir, wandb_project=cfg.logging.get("wandb_project"),
-        wandb_config={"model": dict(cfg.model), "datamodule": dict(dm)})
+    logger = None
+    if is_main:
+        os.makedirs(cfg.checkpoint.dirpath, exist_ok=True)
+        logger = MetricLogger(
+            cfg.logging.log_dir,
+            wandb_project=cfg.logging.get("wandb_project"),
+            wandb_config={"model": dict(cfg.model), "datamodule": dict(dm)})
     # the logged LR counts micro-steps, as the JAX entry logs it
     lr_sched = trainer.multistep_schedule(float(cfg.model.lr), milestones,
                                           cfg.model.gamma)
     watcher = None
-    if cfg.logging.get("watch_model"):
+    if is_main and cfg.logging.get("watch_model"):
         from onepose_tpu_torch.train.callbacks import ModelWatcher
 
         watcher = ModelWatcher(
@@ -128,23 +188,25 @@ def train(cfg, model=None,
         db = {k: torch.as_tensor(db_np[k], device=device) for k in db_keys}
         step_fn = trainer.make_gather_train_step(
             gats_cfg, db, dm.shape2d, dm.shape3d, dm.assign_pad_val,
-            num_leaf=int(dm.num_leaf))
-        print(f"[train] device-resident DB: "
-              f"{db_np['clt_stack'].nbytes / 1e6:.0f} MB, "
-              f"{len(obj_index)} objects")
+            num_leaf=int(dm.num_leaf), mesh=mesh)
+        if is_main:
+            print(f"[train] device-resident DB: "
+                  f"{db_np['clt_stack'].nbytes / 1e6:.0f} MB, "
+                  f"{len(obj_index)} objects")
     else:
-        step_fn = trainer.make_train_step(gats_cfg)
+        step_fn = trainer.make_train_step(gats_cfg, mesh=mesh)
     uniforms = leaf_uniform or functools.partial(
         trainer.leaf_uniforms, num_leaf=int(dm.num_leaf), shape3d=dm.shape3d)
     stager = DeviceStager(device)
 
     def stage(batch):
-        """On the staging thread: seeds → uniforms, then the upload."""
+        """On the staging thread: this rank's rows of the global batch,
+        seeds → uniforms (the global batch's draws, as each item's seed
+        makes its own), then the upload."""
+        keys = batch if device_resident else HOST_KEYS
+        batch = {k: batch[k][lo:hi] for k in keys}
         if "leaf_seed" in batch:
-            batch = dict(batch)
             batch["leaf_uniform"] = uniforms(batch.pop("leaf_seed"))
-        elif not device_resident:
-            batch = {k: batch[k] for k in HOST_KEYS}
         return stager(batch)
 
     global_step = state.step
@@ -165,27 +227,31 @@ def train(cfg, model=None,
             if watcher is not None:
                 watcher.step(global_step, state.model)
             if global_step % cfg.trainer.log_every_n_steps == 0:
-                loss_val = float(loss)
+                loss_val = float(loss)   # the global batch's, every rank
                 losses.append(loss_val)
-                logger.log(global_step, {
-                    "epoch": epoch, "train_loss": loss_val,
-                    "lr": float(lr_sched(global_step))})
+                if logger is not None:
+                    logger.log(global_step, {
+                        "epoch": epoch, "train_loss": loss_val,
+                        "lr": float(lr_sched(global_step))})
         epoch_loss = float(np.mean(losses)) if losses else float("nan")
         callback_metrics["train_loss"] = epoch_loss
-        print(f"[train] epoch {epoch}: loss={epoch_loss:.4f} "
-              f"({time.time() - t0:.1f}s, {global_step} steps)")
+        if is_main:
+            print(f"[train] epoch {epoch}: loss={epoch_loss:.4f} "
+                  f"({time.time() - t0:.1f}s, {global_step} steps)")
+            ckpt_path = osp.join(cfg.checkpoint.dirpath,
+                                 f"epoch={epoch}.ckpt")
+            model_io.save_train_state(state, ckpt_path)
+            logger.log_checkpoint(ckpt_path)
+            model_io.save_gats_spg(
+                state.model, osp.join(cfg.checkpoint.dirpath, "last.ckpt"))
 
-        ckpt_path = osp.join(cfg.checkpoint.dirpath, f"epoch={epoch}.ckpt")
-        model_io.save_train_state(state, ckpt_path)
-        logger.log_checkpoint(ckpt_path)
-        model_io.save_gats_spg(state.model,
-                               osp.join(cfg.checkpoint.dirpath, "last.ckpt"))
-
-        val_metrics = validate(cfg, state.model, gats_cfg, epoch=epoch)
-        if val_metrics:
-            callback_metrics.update(val_metrics)
-            logger.log(global_step, {"epoch": epoch, **val_metrics})
-    logger.close()
+            val_metrics = validate(cfg, state.model, gats_cfg, epoch=epoch)
+            if val_metrics:
+                callback_metrics.update(val_metrics)
+                logger.log(global_step, {"epoch": epoch, **val_metrics})
+        comm.synchronize()
+    if logger is not None:
+        logger.close()
     return state, callback_metrics
 
 

@@ -39,24 +39,35 @@ import numpy as np
 import torch
 
 from onepose_tpu_torch.models import convert, gats_spg
-from onepose_tpu_torch.train.loss import focal_loss
+from onepose_tpu_torch.parallel import collectives as comm
+from onepose_tpu_torch.parallel import mesh as pmesh
+from onepose_tpu_torch.train.loss import focal_combine, focal_sums
 
 
-def multistep_schedule(base_lr: float, milestones_steps: Iterable[int],
-                       gamma: float) -> Callable[[int], np.float32]:
-    """MultiStepLR in steps (callers convert epochs → steps): the fp32 LR
-    at update count ``count``, scaled by ``gamma`` for every milestone
-    with ``count >= milestone``."""
-    boundaries = sorted({int(m): gamma for m in milestones_steps}.items())
+class MultiStepSchedule:
+    """MultiStepLR in steps (callers convert epochs → steps): called with
+    an update count, the fp32 LR, scaled by ``gamma`` for every milestone
+    with ``count >= milestone``. A class, not a closure, so that a train
+    state pickles (the ranks of ``parallel.launch.run_local`` return it)."""
 
-    def schedule(count: int) -> np.float32:
-        lr = np.float32(base_lr)
-        for threshold, scale in boundaries:
+    def __init__(self, base_lr: float, milestones_steps: Iterable[int],
+                 gamma: float):
+        self.base_lr = base_lr
+        self.boundaries = sorted(
+            {int(m): gamma for m in milestones_steps}.items())
+
+    def __call__(self, count: int) -> np.float32:
+        lr = np.float32(self.base_lr)
+        for threshold, scale in self.boundaries:
             if count >= threshold:
                 lr = np.float32(scale) * lr
         return lr
 
-    return schedule
+
+def multistep_schedule(base_lr: float, milestones_steps: Iterable[int],
+                       gamma: float) -> Callable[[int], np.float32]:
+    """The :class:`MultiStepSchedule` of these settings."""
+    return MultiStepSchedule(base_lr, milestones_steps, gamma)
 
 
 class Optimizer:
@@ -202,32 +213,75 @@ def init_train_state(tx: Callable[..., Optimizer],
 
 def compute_loss(model: gats_spg.GATsSPG, batch: Dict[str, torch.Tensor],
                  gats_config: Optional[dict] = None,
-                 loss_config: Optional[dict] = None) -> torch.Tensor:
+                 loss_config: Optional[dict] = None,
+                 group=None) -> torch.Tensor:
     """batch keys: descriptors2d_query / descriptors3d_db /
     descriptors2d_db ([B, N, D]) and conf_gt [B, N1, N2] (pads encoded as
     negatives, the reference's convention). The conf matrix is
-    ``forward_train``'s; its matches are not formed."""
+    ``forward_train``'s; its matches are not formed.
+
+    ``group``: the batch is this rank's rows of a batch split over the
+    group's ranks. The focal loss's match and non-match counts are then
+    summed over the group first, and this returns the rank's share of the
+    whole batch's loss (the shares sum to it)."""
     cfg = gats_spg.resolve_config(gats_config)
     m0, m1 = gats_spg.gnn_body(model, batch, cfg)
     conf = gats_spg.dual_softmax_conf(m0, m1, cfg["scale_factor"])
-    return focal_loss(conf, batch["conf_gt"], **(loss_config or {}))
+    loss_config = dict(loss_config or {})
+    weights = {k: loss_config.pop(k) for k in ("pos_weight", "neg_weight")
+               if k in loss_config}
+    pos_sum, neg_sum, n_pos, n_neg = focal_sums(conf, batch["conf_gt"],
+                                                **loss_config)
+    if group is not None:
+        counts = comm.all_reduce(torch.stack([n_pos, n_neg]), "sum", group)
+        n_pos, n_neg = counts[0], counts[1]
+    return focal_combine(pos_sum, neg_sum, n_pos, n_neg, **weights)
+
+
+def _check_mesh(mesh):
+    """The data-parallel steps split the batch over ``mesh``'s data axis;
+    a model axis above 1 would shard the matcher's tokens."""
+    if pmesh.axis_size(mesh, "model") > 1:
+        raise NotImplementedError(f"training: {pmesh.TOKEN_AXIS_TODO}")
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-               gats_config: Optional[dict] = None
+               gats_config: Optional[dict] = None, mesh=None
                ) -> Tuple[TrainState, torch.Tensor]:
-    """Loss, gradients and one optimizer micro-step → (state, loss)."""
-    loss = compute_loss(state.model, batch, gats_config)
+    """Loss, gradients and one optimizer micro-step → (state, loss).
+
+    ``mesh``: ``batch`` is this rank's rows of the global batch, split
+    over the data axis. The step is the global batch's, as the JAX
+    package's step over a data mesh is: the loss's counts are the global
+    batch's (``compute_loss(group=...)``), each rank's gradient of its
+    share is summed over the ranks (not averaged: the shares already
+    divide by the global counts), and every rank then clips and steps
+    the same way on the same gradients. The loss returned is the global
+    batch's."""
+    _check_mesh(mesh)
+    group = None if mesh is None else pmesh.axis_group(mesh, "data")
+    loss = compute_loss(state.model, batch, gats_config, group=group)
     loss.backward()
+    if group is not None:
+        params = list(state.model.parameters())
+        flat = torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).reshape(-1)
+                          for p in params])
+        comm.all_reduce(flat, "sum", group)
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p)
+        loss = comm.all_reduce(loss.detach().clone(), "sum", group)
     state.optimizer.step()
     state.model.zero_grad(set_to_none=True)
     state.step += 1
     return state, loss.detach()
 
 
-def make_train_step(gats_config: Optional[dict] = None):
-    """step(state, batch) -> (state, loss) on dense batches."""
-    return functools.partial(train_step, gats_config=gats_config)
+def make_train_step(gats_config: Optional[dict] = None, mesh=None):
+    """step(state, batch) -> (state, loss) on dense batches (this rank's
+    rows under ``mesh``)."""
+    _check_mesh(mesh)
+    return functools.partial(train_step, gats_config=gats_config, mesh=mesh)
 
 
 def leaf_uniforms(seeds: Sequence[int], num_leaf: int,
@@ -331,24 +385,28 @@ def materialize_light_batch(db: Dict[str, torch.Tensor],
 def gather_train_step(state: TrainState, light: Dict[str, torch.Tensor],
                       db: Dict[str, torch.Tensor],
                       gats_config: Optional[dict], shape2d: int,
-                      shape3d: int, pad_val: int = 0, num_leaf: int = 8
-                      ) -> Tuple[TrainState, torch.Tensor]:
-    """:func:`materialize_light_batch`, then :func:`train_step`."""
+                      shape3d: int, pad_val: int = 0, num_leaf: int = 8,
+                      mesh=None) -> Tuple[TrainState, torch.Tensor]:
+    """:func:`materialize_light_batch`, then :func:`train_step` (under
+    ``mesh`` on this rank's rows of the light batch, leaf uniforms
+    included: the global batch's draws split by rows)."""
     with torch.no_grad():
         batch = materialize_light_batch(db, light, shape2d, shape3d,
                                         pad_val, num_leaf)
-    return train_step(state, batch, gats_config)
+    return train_step(state, batch, gats_config, mesh)
 
 
 def make_gather_train_step(gats_config: Optional[dict],
                            db: Dict[str, torch.Tensor], shape2d: int,
                            shape3d: int, pad_val: int = 0,
-                           num_leaf: int = 8):
+                           num_leaf: int = 8, mesh=None):
     """Device-resident-DB training step: step(state, light_batch).
 
     ``db`` already on the training device; light batches carrying
     ``leaf_uniform`` (instead of ``leaf_idx``) sample their leaves on the
-    device, from the db's ``count_stack`` / ``offset_stack``."""
+    device, from the db's ``count_stack`` / ``offset_stack``. ``mesh``:
+    see :func:`train_step`."""
+    _check_mesh(mesh)
     return functools.partial(
         gather_train_step, db=db, gats_config=gats_config, shape2d=shape2d,
-        shape3d=shape3d, pad_val=pad_val, num_leaf=num_leaf)
+        shape3d=shape3d, pad_val=pad_val, num_leaf=num_leaf, mesh=mesh)

@@ -687,3 +687,48 @@ def test_param_norms_and_logger_equal(tmp_path):
         logger.close()
     assert ((tmp_path / "t" / "metrics.jsonl").read_text()
             == (tmp_path / "j" / "metrics.jsonl").read_text())
+
+
+def test_timer_equal(monkeypatch, capsys):
+    """``utils/profiling.Timer`` against the original on one scripted
+    clock: the same totals, counts, summary and report text."""
+    from onepose_tpu.utils import profiling as jprof
+    from onepose_tpu_torch.utils import profiling as tprof
+
+    out = []
+    for mod in (jprof, tprof):
+        clock = iter([0.0, 0.25, 1.0, 1.5, 2.0, 2.125, 3.0, 3.75])
+        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(clock))
+        timer = mod.Timer()
+        timer.tick("a")
+        dt = timer.tock("a")
+        with timer.scope("b"):
+            pass
+        timer.tick("a")
+        timer.tock("a")
+        with timer.scope("default"):
+            pass
+        timer.report()
+        out.append((dt, timer.summary(), capsys.readouterr().out))
+    assert out[0] == out[1]
+    assert out[1][1]["a"] == {"total_s": 0.375, "count": 2, "mean_ms": 187.5}
+
+
+def test_block_and_time_and_trace(tmp_path):
+    """``block_and_time`` returns the call's output and a time; ``trace``
+    writes a Chrome trace that names the ops run under it."""
+    import torch
+
+    from onepose_tpu_torch.utils import profiling as tprof
+
+    x = torch.ones(64, 64)
+    dt, out = tprof.block_and_time(lambda a: {"y": [a @ a]}, x)
+    assert dt >= 0 and torch.equal(out["y"][0], x @ x)
+    with tprof.trace(str(tmp_path / "tr")) as prof:
+        torch.mm(x, x)
+    assert prof is not None
+    text = open(tmp_path / "tr" / "trace.json").read()
+    assert "aten::mm" in text and json.loads(text)["traceEvents"]
+    with tprof.trace(str(tmp_path / "off"), enabled=False) as prof:
+        pass
+    assert prof is None and not (tmp_path / "off").exists()

@@ -56,7 +56,12 @@ def _cfg(tmp, cls, **extra):
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("eval_world")
+    return build_world(tmp_path_factory.mktemp("eval_world"))
+
+
+def build_world(tmp):
+    """The plane world's frames, weights and planted DB under ``tmp`` →
+    (tmp, SuperPoint params, GATsSPG params), numpy."""
     rng = np.random.default_rng(0)
     obj = tmp / "data" / "0001-plane-box"
     seq = obj / "plane-1"

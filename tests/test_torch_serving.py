@@ -31,6 +31,7 @@ from onepose_tpu_torch.models import gats_spg as tgs
 from onepose_tpu_torch.utils import geometry as geo
 from test_serving import make_db
 from test_torch_epnp import _jax_noise, _stack_noise
+from test_torch_parallel import FakeMesh
 
 SP_CFG = {"max_keypoints": 64}
 GATS_CFG = {"match_threshold": 1e-3}
@@ -257,6 +258,8 @@ def test_match_kernel_gets_contiguous_aligned_rows(world, monkeypatch):
         assert pair == [(True, 0, torch.float32)] * 2
 
 
+
+
 def test_server_refuses_bad_setups(world):
     _, (sp, gats), dbs = world
     rng = np.random.default_rng(8)
@@ -268,8 +271,8 @@ def test_server_refuses_bad_setups(world):
         tserving.PoseServer(sp, gats, {"a": make_db(rng, leaf=2),
                                        "b": make_db(rng, leaf=4)},
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        tserving.PoseServer(sp, gats, dbs, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="not divisible by data axis 3"):
+        tserving.PoseServer(sp, gats, dbs, mesh=FakeMesh(3), device="cpu")
     with pytest.raises(ValueError, match="db_dtype"):
         tserving.PoseServer(sp, gats, dbs, db_dtype="float16", device="cpu")
     with pytest.raises(ValueError, match="object DB"):

@@ -27,6 +27,7 @@ from onepose_tpu.models import superglue as jsg, superpoint as jsp
 from onepose_tpu.sfm import extract as jextract, match as jmatch
 from onepose_tpu_torch.models import convert, superglue as tsg
 from onepose_tpu_torch.sfm import extract as textract, match as tmatch
+from test_torch_parallel import FakeMesh
 from test_torch_superglue import jax_matches_and_log_assignment
 
 SG_CFG = {"descriptor_dim": 64, "keypoint_encoder": (16, 32, 64),
@@ -72,12 +73,20 @@ def test_extract_to_h5_matches_jax(tmp_path):
         np.testing.assert_array_equal(got[n[1:] + "/image_size"], [96, 64])
 
 
+
+
 def test_extract_to_h5_refuses_a_mesh_and_defaults_to_the_card(tmp_path):
+    """A mesh whose data axis does not divide the batch is refused, as
+    the JAX package refuses it."""
     model = convert.superpoint_from_jax(convert.init_superpoint_params(
         np.random.default_rng(0)))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="not divisible by data axis 3"):
         textract.extract_to_h5(model, [], str(tmp_path / "x.h5"),
-                               device="cpu", mesh=object())
+                               device="cpu", mesh=FakeMesh(3))
+    with pytest.raises(ValueError, match="not divisible by data axis 3"):
+        tmatch.match_pairs_to_h5(None, [], str(tmp_path / "x.h5"),
+                                 str(tmp_path / "m.h5"), device="cpu",
+                                 mesh=FakeMesh(3))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             textract.extract_to_h5(model, [], str(tmp_path / "x.h5"))

@@ -95,12 +95,14 @@ def test_invalid_slots_follow_dustbin_convention(models):
 
 
 def test_bf16_is_refused(models):
-    """SuperPoint computes in bf16 too (tests/test_torch_superpoint_bf16.py);
-    GATsSPG's bf16 body is still refused, and so is a SuperPoint dtype or
-    stem that the port does not have."""
+    """SuperPoint and GATsSPG compute in bf16 too
+    (tests/test_torch_superpoint_bf16.py, test_torch_gats_spg_bf16.py); a
+    dtype or stem that the port does not have is refused."""
     _, model = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgats.resolve_config({"compute_dtype": "bfloat16"})
+    assert tgats.resolve_config(
+        {"compute_dtype": "bfloat16"})["compute_dtype"] == "bfloat16"
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tgats.resolve_config({"compute_dtype": "float16"})
     for cfg in ({"stem_dtype": "float16"}, {"compute_dtype": "float16"},
                 {"stem": "xla"}):
         with pytest.raises(ValueError):

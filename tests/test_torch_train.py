@@ -569,9 +569,11 @@ def test_train_entry_raises_without_a_card(train_json, tmp_path):  # noqa: F811
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry.train(cfg)
+    # two ranks cannot split the fixture's batch of 1 (refused before
+    # any rank starts; test_torch_parallel_paths.py trains on two)
     cfg = _entry_cfg(Config, str(tmp_path), train_json, "x", device="cpu",
                      parallel={"n_devices": 2})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(ValueError, match="not divisible by 2 processes"):
         entry.train(cfg)
 
 
