@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``onepose_tpu_torch/csrc`` at
 first use (into ``build/onepose_tpu_torch/``, counted in this run's time)
-and runs fourteen phases; weights and inputs come from fixed seeds.
+and runs fifteen phases; weights and inputs come from fixed seeds.
 
   1. card name and power limit (nvidia-smi);
   2. kernel build time, ptxas register use, and the count of tensor-core
@@ -122,13 +122,32 @@ and runs fourteen phases; weights and inputs come from fixed seeds.
      ``load_gats_spg``, the losses within 1e-5 of phase 12 (d)'s; (e)
      GATsSPG in bf16 at phase 7's width on a planted world against fp32:
      match Jaccard, the descriptors' RMS gap, ms of the match stage. Stage
-     times come from ``utils/profiling.Timer``.
+     times come from ``utils/profiling.Timer``;
+ 15. the token-sharded model axis: the same world on a (world/2, 2) mesh,
+     GATsSPG's 3D tokens split over its model axis; first the collectives
+     under autograd probed on CUDA tensors (none staged through the
+     host), then against one rank on the same rows: (a) the pipeline at
+     phase 7's shape, the DB planted for frame 0 (each rank holds 1000 of
+     the 2000 token rows): matches equal outside relative near-ties
+     (``match_gate``'s rule on one rank's conf), success equal, poses
+     within 1e-4, frame 0's planted pose within phase 8's bound; (b) the
+     matcher at tests/test_mp4.py's [2,256] x [2,4096] tokens, leaf 8, 4
+     blocks: matches as in (a), scores within rtol 1e-4, atol 1e-6, and
+     the match kernel on the ranks' gathered descriptors against its
+     plain version under ``match_gate``, with both times and the bound;
+     (c) the dense train step at the JAX dryrun's protocol shape (b=8,
+     n1=1000, n2=2000, leaf 8, 4 blocks): the first step's gradients
+     within rtol 1e-3 and atol 1e-3·max|g|, two steps' losses within
+     rtol 1e-4, every rank's parameters after them bit-equal; ms a
+     pipeline batch and a train step, and peak memory, a rank and one
+     rank.
 
-``--phases 2,11a,12,14`` runs a subset (phase 1 always; 14 needs 11a and
-12) and prints neither the kernels line nor the final line. Each main
-path (phases 7, 8, 9, 10b, 11a, 12d and 14's (a)-(c) on every rank) is
-driven once with the launch counts set to 0 just before it and read just
-after; the kernels line sums those counts, every rank's included. Every
+``--phases 2,11a,12,14,15`` runs a subset (phase 1 always; 14 needs 11a
+and 12) and prints neither the kernels line nor the final line. Each main
+path (phases 7, 8, 9, 10b, 11a, 12d, 14's (a)-(c) and 15's (a)-(b) on
+every rank) is driven once with the launch counts set to 0 just before
+it and read just after; the kernels line sums those counts, every rank's
+included. Every
 phase's launches, comparisons included, are in the JSON. Detailed
 results go to ``DIR/chip_smoke.json`` and ``DIR/profile.txt`` (default
 ``build/chip_smoke``). Any failed phase makes the script exit 1 without
@@ -2295,6 +2314,175 @@ class Smoke:
                    f"{ms['bfloat16']:.3f} ms in bf16, {ms['float32']:.3f} "
                    f"ms in fp32  [{self.smi}]")
 
+    # -- 15 ---------------------------------------------------------------
+    def token_axis(self):
+        """15: GATsSPG's 3D tokens sharded over the model axis of a
+        (world/2, 2) mesh, the world ``max(2, cards)`` ranks as in phase
+        14, each path against one rank on the same rows: (a) the pipeline
+        at phase 7's shape, the DB planted for frame 0; (b) the matcher
+        at [2,256] x [2,4096] tokens, leaf 8, 4 blocks, and the match
+        kernel at that shape on the ranks' gathered descriptors against
+        its plain version; (c) the dense train step at the dryrun's
+        protocol shape (b=8, n1=1000, n2=2000, leaf 8, 4 blocks). Every
+        rank's launches of (a) and (b) go into the kernels line; ms a
+        batch and peak memory a rank beside one rank's."""
+        from onepose_tpu_torch.parallel import launch
+
+        cards = torch.cuda.device_count()
+        world = max(2, cards)
+        backend = launch.pick_backend("cuda", world, cards)
+        stats = self.results["token_axis"] = {
+            "world": world, "mesh": (world // 2, 2), "backend": backend}
+        log(f"   world {world} ranks on a ({world // 2}, 2) mesh, backend "
+            f"{backend}, {cards} card(s)  [{self.smi}]")
+        torch.cuda.empty_cache()
+        sp_model, gats_model, pipe_db, _, images = cards_world()
+        poses_gt, points = plant_pipeline(
+            sp_model, gats_model, pipe_db, images,
+            np.random.default_rng(CARDS_SEED + 1), self.dev)
+        one = drive_tokens(points, None, self.dev, world // 2)
+        ranks = launch.run_local(tokens_rank, world, points, device="cuda",
+                                 timeout=600)
+        self.results.setdefault("launches", {})["token axis"] = launched = {
+            k: sum(r["launches"][k] for r in ranks) for k in ("stem", "match")}
+        stats["launches_per_rank"] = [r["launches"] for r in ranks]
+        probe = [r["probe"] for r in ranks]
+        stats["collectives"] = probe[0]
+        self.check(all(launched[k] > 0 for k in launched)
+                   and all(r["backend"] == backend for r in ranks)
+                   and all(p["ok"] for p in probe),
+                   f"token axis: the ranks ran {backend}, took CUDA tensors "
+                   f"in every collective under autograd ({probe[0]['ops']}; "
+                   f"{probe[0]['staged']} staged through the host) and "
+                   f"launched {stats['launches_per_rank']}")
+        heads = [r for r in ranks if r["model_index"] == 0]
+        self.tokens_pipeline(one, ranks, heads, poses_gt, stats)
+        self.tokens_matcher(one, heads, stats)
+        self.tokens_train(one, ranks, stats)
+        stats["ms"] = {k: {"one rank": one[k + "_ms"],
+                           "ranks": [r[k + "_ms"] for r in ranks]}
+                       for k in ("pipeline", "train")}
+        stats["peak_gib"] = {k: {"one rank": one[k + "_gib"],
+                                 "ranks": [r[k + "_gib"] for r in ranks]}
+                             for k in ("pipeline", "train")}
+        for k in ("pipeline", "train"):
+            log(f"   {k}: ms a batch one rank {one[k + '_ms']:.1f}, ranks "
+                f"{[round(r[k + '_ms'], 1) for r in ranks]}; peak GiB one "
+                f"rank {one[k + '_gib']:.2f}, ranks "
+                f"{[round(r[k + '_gib'], 2) for r in ranks]}  [{self.smi}]")
+
+    def tokens_pipeline(self, one, ranks, heads, poses_gt, stats):
+        """15 (a): every rank's whole-batch outputs against one rank's on
+        the same rows: matches equal outside relative near-ties (one
+        rank's conf on those rows, ``match_gate``'s rule), success
+        equal, poses within 1e-4; the planted pose of frame 0."""
+        from onepose_tpu_torch.ops import match
+        from onepose_tpu_torch.utils import geometry as geo
+
+        res = stats["pipeline"] = []
+        for r in ranks:
+            got, ref = r["pipeline"], one["pipeline"]
+            diff, bad = near_tie_flips(one["pipeline_conf"],
+                                       got["matches0"], ref["matches0"],
+                                       match.GATE_REL)
+            dpose = float(np.abs(got["poses"] - ref["poses"]).max())
+            same = bool((got["success"] == ref["success"]).all())
+            res.append({"rank": r["rank"], "matches_differ": diff,
+                        "outside_near_ties": bad, "poses": dpose,
+                        "success_equal": same, "held": r["held"]})
+            self.check(bad == 0 and same and dpose <= 1e-4
+                       and r["held"]["descriptors3d"] == SHAPE3D // 2
+                       and r["held"]["keypoints3d"] == SHAPE3D,
+                       f"token axis (a) rank {r['rank']}: DB rows held "
+                       f"{r['held']}; against one rank on the same rows "
+                       f"matches0 differ at {diff} slots ({bad} outside "
+                       f"near-ties), success equal {same}, poses by "
+                       f"{dpose:.2e}")
+        err = geo.query_pose_error(heads[0]["pipeline"]["poses"][0],
+                                   poses_gt[0])
+        stats["planted_frame0"] = err
+        self.check(err[0] < POSE_DEG and err[1] < POSE_CM
+                   and bool(heads[0]["pipeline"]["success"][0]),
+                   f"token axis (a): frame 0's planted pose within "
+                   f"{POSE_DEG} deg / {POSE_CM} cm: {err[0]:.4f} deg, "
+                   f"{err[1]:.4f} cm")
+
+    def tokens_matcher(self, one, heads, stats):
+        """15 (b): the matcher's outputs, reassembled over the data axis,
+        against one rank's (matches equal outside near-ties, scores of
+        the slots that match alike within rtol 1e-4, atol 1e-6), and the
+        match kernel on the ranks' gathered descriptors against its
+        plain version under ``match_gate``, with both times and the
+        bound."""
+        from onepose_tpu_torch.ops import match
+
+        got = {k: np.concatenate([r["matcher"][k] for r in heads])
+               for k in heads[0]["matcher"]}
+        ref = one["matcher"]
+        flips = {}
+        for name, dim in (("matches0", 2), ("matches1", 1)):
+            flips[name] = near_tie_flips(ref["conf"], got[name], ref[name],
+                                         match.GATE_REL, dim)
+        alike = got["matches0"] == ref["matches0"]
+        score = float(np.abs(got["scores0"] - ref["scores0"])[alike].max())
+        close = np.allclose(got["scores0"][alike], ref["scores0"][alike],
+                            rtol=1e-4, atol=1e-6)
+        b, n1, n2, _ = TOKENS_MATCHER.values()
+        d0, d1 = (torch.from_numpy(got[k]).to(self.dev) for k in ("m0", "m1"))
+        out = match.dual_softmax_argmax(d0, d1, 0.07)
+        torch.cuda.synchronize()
+        gate = match.match_gate(out, d0, d1, 0.07)
+        ms = cuda_ms(lambda: match.dual_softmax_argmax(d0, d1, 0.07))
+        plain_ms = cuda_ms(lambda: match.match_reference(d0, d1, 0.07))
+        bound_ms, bound_by = match_bound_ms(b, n1, n2, 256)
+        key = f"[{b},{n1},256]x[{b},{n2},256] gathered"
+        self.results.setdefault("match", {})[key] = {
+            **dataclasses.asdict(gate), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        stats["matcher"] = {"flips": flips, "max_score_diff": score,
+                            "matches": int((ref["matches0"] >= 0).sum())}
+        self.check(all(bad == 0 for _, bad in flips.values()) and close,
+                   f"token axis (b): the matcher at [{b},{n1}] x "
+                   f"[{b},{n2}] tokens against one rank: (differ, outside "
+                   f"near-ties) {flips}, scores by {score:.2e}")
+        self.check(gate.ok,
+                   f"token axis (b): match {key}: max rel err "
+                   f"{gate.max_rel_err:.3e} (gate {match.GATE_REL:.0e}), "
+                   f"index mismatches outside near-ties {gate.bad_idx}; "
+                   f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                   f"{bound_ms:.4f} ms ({bound_by})  [{self.smi}]")
+
+    def tokens_train(self, one, ranks, stats):
+        """15 (c): the first step's gradients (summed over the world)
+        within rtol 1e-3 and atol 1e-3·max|g| of one rank's (the dryrun's
+        rule), two steps' losses within rtol 1e-4, and every rank's
+        parameters after them bit-equal."""
+        ref, got = one["train"], ranks[0]["train"]
+        scale = max(float(np.abs(g).max()) for g in ref["grads"].values())
+        g64 = ref["grads64"]
+        scale64 = max(float(np.abs(g).max()) for g in g64.values())
+        vs64 = {who: max(float(np.abs(g[k] - g64[k]).max()) for k in g64)
+                / scale64 for who, g in (("one rank", ref["grads"]),
+                                         ("world", got["grads"]))}
+        worst = max(float((np.abs(got["grads"][k] - g) - 1e-3 * np.abs(g))
+                          .max()) for k, g in ref["grads"].items())
+        rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                   ref["losses"])]
+        same = all(np.array_equal(r["train"]["params"], got["params"])
+                   for r in ranks[1:])
+        stats["train"] = {"losses": got["losses"], "one_rank": ref["losses"],
+                          "loss_rel": rel, "grad_excess": worst,
+                          "grad_scale": scale, "vs_fp64_of_max": vs64}
+        self.check(worst <= 1e-3 * scale and max(rel) <= 1e-4 and same,
+                   f"token axis (c): the dense train step at {TOKENS_TRAIN}: "
+                   f"gradients within rtol 1e-3 + "
+                   f"{1e-3 * scale:.2e} of one rank's (excess over rtol "
+                   f"{worst:.2e}), losses {got['losses']} against "
+                   f"{ref['losses']} (rel {max(rel):.1e}), ranks' "
+                   f"parameters bit-equal {same}; fp32 against fp64, of the "
+                   f"largest entry: one rank {vs64['one rank']:.2e}, the "
+                   f"world {vs64['world']:.2e}")
+
     def kernels_line(self):
         st = self.results.get("stem", {}).get(str((B, H, W, 1)), {})
         mt = self.results.get("match", {}).get(
@@ -2359,26 +2547,19 @@ def cards_payload(capture, dev) -> dict:
     frames' one-rank matches back-projected under known poses), 16 of
     11a's frames with a SuperGlue planted on their descriptors, and the
     poses planted."""
-    from onepose_tpu_torch import pipeline, serving
+    from onepose_tpu_torch import serving
     from onepose_tpu_torch.models import convert, superpoint
     from onepose_tpu_torch.sfm import extract
-    from onepose_tpu_torch.utils import geometry as geo
 
     sp_model, gats_model, pipe_db, serve_dbs, images = cards_world()
     rng = np.random.default_rng(CARDS_SEED + 1)
-    poses_gt = [np.concatenate([geo.rodrigues(rng.normal(size=3) * 0.3),
-                                np.array([[0.0], [0.0], [0.5]])], 1)
-                for _ in range(B)]
+    poses_gt, pipe_points = plant_pipeline(sp_model, gats_model, pipe_db,
+                                           images, rng, dev)
+    planted = {"pipe": pipe_points}
     noise = cards_noise(dev)
-    Ks = np.broadcast_to(KMAT, (B, 3, 3)).copy()
     kw = dict(sp_config={"max_keypoints": K_PTS},
               gats_config={"match_threshold": 0.0}, num_hypotheses=HYP,
               refine_iters=5, device=dev)
-    first = pipeline.PosePipeline(sp_model, gats_model, pipe_db, **kw)(
-        images[..., None], Ks, noise=noise)
-    planted = {"pipe": plant_geometry(pipe_db, first.matches0,
-                                      first.keypoints2d, KMAT, poses_gt,
-                                      rng).keypoints3d}
     reqs = cards_requests(images)
     first = serving.PoseServer(sp_model, gats_model, serve_dbs,
                                batch_size=B, **kw).run(reqs, noise)
@@ -2398,6 +2579,27 @@ def cards_payload(capture, dev) -> dict:
             "sfm_images": sfm_images, "sg": sg,
             "pairs": [(names[i], names[(i + 1 + i % 3) % len(names)])
                       for i in range(len(names))]}
+
+
+def plant_pipeline(sp_model, gats_model, pipe_db, images, rng, dev):
+    """B known poses drawn from ``rng`` and the pipeline DB's 3D points
+    planted for them (``plant_geometry``) on one rank's matches of the
+    frames under ``cards_noise``: frame 0 claims its points first."""
+    from onepose_tpu_torch import pipeline
+    from onepose_tpu_torch.utils import geometry as geo
+
+    poses_gt = [np.concatenate([geo.rodrigues(rng.normal(size=3) * 0.3),
+                                np.array([[0.0], [0.0], [0.5]])], 1)
+                for _ in range(B)]
+    first = pipeline.PosePipeline(
+        sp_model, gats_model, pipe_db, sp_config={"max_keypoints": K_PTS},
+        gats_config={"match_threshold": 0.0}, num_hypotheses=HYP,
+        refine_iters=5, device=dev)(
+            images[..., None], np.broadcast_to(KMAT, (B, 3, 3)).copy(),
+            noise=cards_noise(dev))
+    return poses_gt, plant_geometry(pipe_db, first.matches0,
+                                    first.keypoints2d, KMAT, poses_gt,
+                                    rng).keypoints3d
 
 
 def cards_requests(images):
@@ -2521,6 +2723,280 @@ def several_cards_rank(payload) -> dict:
     out = drive_cards(payload, pmesh.make_mesh(world),
                       pmesh.make_mesh(world, (world // 2, 2)), dev)
     out.update(rank=comm.get_rank(), backend=dist.get_backend())
+    return out
+
+
+TOKENS_SEED = 16
+TOKENS_MATCHER = {"b": 2, "n1": 256, "n2": 4096, "leaf": 8}
+TOKENS_TRAIN = {"b": 8, "n1": 1000, "n2": 2000, "leaf": 8}
+# random weights score no pair above the trained 0.2: every mutual pair
+# matches at 0, so that (b) compares matches
+TOKENS_MATCH_CFG = {"match_threshold": 0.0}
+
+
+def tokens_matcher_data():
+    """15 (b)'s inputs: tests/test_mp4.py::test_matcher_mp4_shape3d_4096's
+    shapes and masks, from ``TOKENS_SEED``, and GATsSPG at full width."""
+    from onepose_tpu_torch.models import convert
+
+    rng = np.random.default_rng(TOKENS_SEED)
+    b, n1, n2, leaf = TOKENS_MATCHER.values()
+    mask2d = np.ones((b, n1), bool)
+    mask2d[:, n1 - 17:] = False
+    mask3d = np.ones((b, n2), bool)
+    mask3d[:, n2 - 33:] = False
+    data = {"descriptors2d_query": rng.normal(size=(b, n1, 256)),
+            "descriptors3d_db": rng.normal(size=(b, n2, 256)),
+            "descriptors2d_db": rng.normal(size=(b, n2 * leaf, 256)),
+            "mask2d": mask2d, "mask3d": mask3d}
+    data = {k: torch.from_numpy(v.astype(np.float32) if v.dtype ==
+                                np.float64 else v) for k, v in data.items()}
+    return convert.gats_spg_from_jax(convert.init_gats_spg_params(rng)), data
+
+
+def tokens_train_batch():
+    """15 (c)'s batch: the dryrun's (``__graft_entry__._dryrun_impl``)
+    shapes and positive rate, from ``TOKENS_SEED`` + 1."""
+    rng = np.random.default_rng(TOKENS_SEED + 1)
+    b, n1, n2, leaf = TOKENS_TRAIN.values()
+    batch = {"descriptors2d_query": rng.normal(size=(b, n1, 256)),
+             "descriptors3d_db": rng.normal(size=(b, n2, 256)),
+             "descriptors2d_db": rng.normal(size=(b, n2 * leaf, 256))}
+    batch = {k: torch.from_numpy(v.astype(np.float32))
+             for k, v in batch.items()}
+    batch["conf_gt"] = torch.from_numpy(
+        (rng.uniform(size=(b, n1, n2)) < 0.002).astype(np.int32))
+    return batch
+
+
+def near_tie_flips(conf, a, b, rel, dim=2):
+    """(entries where the matches ``a`` and ``b`` differ, those outside
+    relative near-ties): under ``match_gate``'s rule an entry may differ
+    where its own conf row (``dim`` 2: a query's row; 1: a DB point's
+    column) has a top-2 gap below ``rel`` x its top-1, or where the
+    conf line of either side's match has (the mutual check reads it)."""
+    conf = torch.as_tensor(conf)
+    top = conf.topk(2, dim=2).values
+    row_tie = (top[..., 0] - top[..., 1]) < rel * top[..., 0]
+    top = conf.topk(2, dim=1).values
+    col_tie = (top[:, 0] - top[:, 1]) < rel * top[:, 0]
+    own, other = (row_tie, col_tie) if dim == 2 else (col_tie, row_tie)
+    a, b = torch.as_tensor(a).long(), torch.as_tensor(b).long()
+    ok = own.clone()
+    for m in (a, b):
+        ok |= (m >= 0) & torch.gather(other, 1, m.clamp(min=0))
+    diff = a != b
+    return int(diff.sum()), int((diff & ~ok).sum())
+
+
+def drive_tokens(points, mesh, dev, n_data=1) -> dict:
+    """Phase 15's paths in this process: a rank of the world with
+    ``mesh``, one rank without it, which runs (a) and (b) on each of the
+    ``n_data`` data ranks' rows (so on the rows each rank runs) and (c)
+    on the whole batch. Outputs on the host; launch counts of one drive
+    of (a) and (b); ms a pipeline batch and a train step (3 calls after a
+    warm-up, ``Timer``) and the peak memory of each path."""
+    from onepose_tpu_torch import pipeline
+    from onepose_tpu_torch.models import gats_spg
+    from onepose_tpu_torch.parallel import collectives as comm
+    from onepose_tpu_torch.parallel import mesh as pmesh
+    from onepose_tpu_torch.utils.profiling import Timer
+
+    sp_model, gats_model, pipe_db, _, images = cards_world(
+        {"pipe": points})
+    noise = cards_noise(dev)
+    Ks = np.broadcast_to(KMAT, (B, 3, 3)).copy()
+    pipe = pipeline.PosePipeline(
+        sp_model, gats_model, pipe_db, sp_config={"max_keypoints": K_PTS},
+        gats_config={"match_threshold": 0.0}, num_hypotheses=HYP,
+        refine_iters=5, device=dev, mesh=mesh)
+    model, data = tokens_matcher_data()
+    model = model.to(dev).eval()
+    group = pmesh.token_group(mesh, TOKENS_MATCHER["n2"])
+    out = {"held": {k: len(v) for k, v in pipe.db.items()}}
+
+    def matcher(rows):
+        local = {k: v[rows].to(dev) for k, v in data.items()}
+        local.update(pmesh.token_shard(mesh, TOKENS_MATCHER["n2"], {
+            k: local[k] for k in ("descriptors3d_db", "descriptors2d_db",
+                                  "mask3d")}, dim=1))
+        got = gats_spg.forward_match_only(model, local, TOKENS_MATCH_CFG,
+                                          group)
+        with torch.no_grad():
+            m0, m1 = gats_spg.gnn_body(
+                model, local, gats_spg.resolve_config(TOKENS_MATCH_CFG),
+                group)
+            if group is not None:
+                m1 = comm.all_gather_cat(m1, 1, group)
+        return {"matches0": got.matches0, "matches1": got.matches1,
+                "scores0": got.matching_scores0, "m0": m0, "m1": m1}
+
+    def stack(parts):
+        return {k: np.concatenate([p[k].cpu().numpy() for p in parts])
+                for k in parts[0]}
+
+    def rows_noise(s):
+        return type(noise)(*(x[s] for x in noise))
+
+    torch.cuda.reset_peak_memory_stats()
+    saved = launch_counts()
+    set_launch_counts({k: 0 for k in saved})
+    if mesh is not None:
+        res = pipe(images[..., None], Ks, noise=noise)
+        out["pipeline"] = {k: getattr(res, k).cpu().numpy() for k in (
+            "poses", "success", "matches0")}
+        out["pipeline_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["matcher"] = stack([matcher(pmesh.data_rows(
+            mesh, TOKENS_MATCHER["b"]))])
+    else:
+        per = B // n_data
+        parts = [pipe(images[i:i + per, ..., None], Ks[i:i + per],
+                      noise=rows_noise(slice(i, i + per)))
+                 for i in range(0, B, per)]
+        out["pipeline"] = {k: np.concatenate([getattr(p, k).cpu().numpy()
+                                              for p in parts])
+                           for k in ("poses", "success", "matches0")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()   # one rank's batch of 8
+        pipe(images[..., None], Ks, noise=noise)
+        out["pipeline_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        per = TOKENS_MATCHER["b"] // n_data
+        out["matcher"] = stack([matcher(slice(i, i + per)) for i in range(
+            0, TOKENS_MATCHER["b"], per)])
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    set_launch_counts({k: saved[k] + out["launches"][k] for k in saved})
+    if mesh is None:   # what the near-tie rule reads: one rank's conf
+        with torch.no_grad():
+            det = pipe.extract(torch.from_numpy(images[..., None]).to(dev))
+            rows = pipe.rows(B)
+            m0, m1 = gats_spg.gnn_body(pipe.gats_model, {
+                "descriptors2d_query": det.descriptors,
+                "descriptors3d_db": rows["descriptors3d"],
+                "descriptors2d_db": rows["descriptors2d_db"]},
+                pipe.gats_config)
+            out["pipeline_conf"] = gats_spg.dual_softmax_conf(
+                m0, m1, 0.07).cpu()
+            out["matcher"]["conf"] = gats_spg.dual_softmax_conf(
+                *(torch.from_numpy(out["matcher"][k]).to(dev)
+                  for k in ("m0", "m1")), 0.07).cpu()
+    timer = Timer()
+    pipe(images[..., None], Ks, noise=noise)    # warm-up
+    for _ in range(3):
+        with timer.scope("pipeline"):
+            pipe(images[..., None], Ks, noise=noise)
+            torch.cuda.synchronize()
+    out["pipeline_ms"] = timer.summary()["pipeline"]["mean_ms"]
+    del pipe, model, data
+    torch.cuda.empty_cache()
+    out.update(train_tokens(mesh, dev))
+    return out
+
+
+def train_tokens(mesh, dev) -> dict:
+    """15 (c) in this process: two steps of the dense train step on this
+    rank's rows and tokens of ``tokens_train_batch`` (the whole batch
+    without a mesh) from the same parameters, the first step's
+    gradients (as the optimizer reads them: summed over the world), the
+    losses, the parameters after, and the ms of 3 more steps and the
+    step's peak memory; without a mesh also the fp64 gradients of the
+    first step (what fp32's reduction-order noise is measured against)."""
+    from onepose_tpu_torch.models import convert
+    from onepose_tpu_torch.parallel import mesh as pmesh
+    from onepose_tpu_torch.train import trainer
+    from onepose_tpu_torch.utils.profiling import Timer
+
+    batch = tokens_train_batch()
+    rows = pmesh.data_rows(mesh, TOKENS_TRAIN["b"])
+    local = {k: v[rows].to(dev) for k, v in batch.items()}
+    n2 = TOKENS_TRAIN["n2"]
+    local.update(pmesh.token_shard(mesh, n2, {
+        k: local[k] for k in ("descriptors3d_db", "descriptors2d_db")},
+        dim=1))
+    local.update(pmesh.token_shard(mesh, n2, {"conf_gt": local["conf_gt"]},
+                                   dim=2))
+    grads = []
+
+    def keep(names, gs):
+        if not grads:
+            grads.append({n: g.cpu().numpy() for n, g in zip(names, gs)})
+        return gs
+
+    model = convert.gats_spg_from_jax(convert.init_gats_spg_params(
+        np.random.default_rng(TOKENS_SEED + 2)))
+    state = trainer.init_train_state(
+        trainer.make_optimizer(base_lr=1e-3, milestones_steps=[100],
+                               grad_clip=0.5, grad_transforms=[keep]),
+        None, model=model, device=dev)
+    step = trainer.make_train_step(None, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(2):
+        state, loss = step(state, local)
+        losses.append(float(loss))
+    params = torch.cat([p.detach().reshape(-1) for p in
+                        state.model.parameters()]).cpu().numpy()
+    timer = Timer()
+    for _ in range(3):
+        with timer.scope("step"):
+            state, loss = step(state, local)
+            torch.cuda.synchronize()
+    out = {"train": {"losses": losses, "grads": grads[0], "params": params},
+           "train_ms": timer.summary()["step"]["mean_ms"],
+           "train_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if mesh is None:
+        del state
+        model = convert.gats_spg_from_jax(convert.init_gats_spg_params(
+            np.random.default_rng(TOKENS_SEED + 2))).to(dev).double()
+        trainer.compute_loss(model, {k: v.double() if v.is_floating_point()
+                                     else v for k, v in local.items()}
+                             ).backward()
+        out["train"]["grads64"] = {n: p.grad.cpu().numpy()
+                                   for n, p in model.named_parameters()}
+    return out
+
+
+def probe_collectives(group, dev) -> dict:
+    """The autograd collectives on CUDA tensors over ``group`` (2 ranks),
+    values and gradients against what each must give. ``collectives.py``
+    has no host staging: an op the backend refused would raise here."""
+    import torch.distributed as dist
+
+    from onepose_tpu_torch.parallel import collectives as comm
+
+    r = dist.get_rank(group)
+    x = torch.full((3, 4), float(r + 1), device=dev, requires_grad=True)
+    y = comm.all_reduce_sum(x, group)
+    (y * (r + 1)).sum().backward()
+    g = torch.full((2, 3), float(r), device=dev, requires_grad=True)
+    cat = comm.all_gather_cat(g, 1, group)
+    (cat * (r + 1)).sum().backward()
+    top = comm.all_reduce_max(x, group)
+    ok = (y.is_cuda and bool((y == 3).all()) and bool((x.grad == 3).all())
+          and tuple(cat.shape) == (2, 6) and bool((cat[:, :3] == 0).all())
+          and bool((cat[:, 3:] == 1).all()) and bool((g.grad == 3).all())
+          and bool((top == 2).all()) and not top.requires_grad)
+    return {"ok": ok, "ops": "all_reduce_sum, all_gather_cat, "
+            "all_reduce_max", "staged": 0}
+
+
+def tokens_rank(points) -> dict:
+    """One rank of phase 15's world: the collectives probed, then
+    ``drive_tokens`` over a (world/2, 2) mesh."""
+    import torch.distributed as dist
+
+    from onepose_tpu_torch.ops.precision import pin_fp32
+    from onepose_tpu_torch.parallel import collectives as comm
+    from onepose_tpu_torch.parallel import mesh as pmesh
+
+    pin_fp32()
+    world = comm.get_world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = pmesh.make_mesh(world, (world // 2, 2))
+    probe = probe_collectives(pmesh.axis_group(mesh, "model"), dev)
+    out = drive_tokens(points, mesh, dev)
+    out.update(rank=comm.get_rank(), backend=dist.get_backend(),
+               probe=probe, model_index=pmesh.axis_index(mesh, "model"))
     return out
 
 
@@ -2903,7 +3379,7 @@ def main() -> int:
                         help="directory for chip_smoke.json and profile.txt")
     parser.add_argument("--phases", default=None,
                         help="comma-separated phases to run (e.g. "
-                        "2,11a,12,14; 14 needs 11a and 12); default all. "
+                        "2,11a,12,14,15; 14 needs 11a and 12); default all. "
                         "A partial run prints no final line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2931,7 +3407,8 @@ def main() -> int:
          smoke.sfm_features),
         ("12 training at full width", smoke.training),
         ("13 bf16 preset", smoke.bf16_preset),
-        ("14 several cards", smoke.several_cards)]
+        ("14 several cards", smoke.several_cards),
+        ("15 token-sharded model axis", smoke.token_axis)]
     chosen = None if args.phases is None else set(args.phases.split(","))
     if chosen is not None:
         chosen.add("1")     # the card's name and power limit

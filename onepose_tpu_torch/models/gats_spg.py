@@ -24,6 +24,17 @@ sums and the GATs aggregation accumulated and kept in fp32 up to their
 outputs, instance-norm statistics in fp32, and ``final_proj``'s output
 cast to fp32 before the L2 norm, so the matching head (and the match
 kernel) take fp32 descriptors.
+
+``token_group`` (the mesh's model axis, ``parallel/mesh.py``; None: whole
+tokens) runs the GNN over 3D tokens sharded across the group's ranks, the
+2D stream whole on each: linear attention whose keys are 3D tokens sums
+its key statistics over the group, the 3D stream's instance norm takes
+its statistics over the group, the GATs layer stays local (a token shard
+holds its own point-major leaves), and matching gathers the 3D
+descriptors (``forward_match_only``) or takes the column softmax's sums
+over the group (``dual_softmax_conf``). The collectives run under
+autograd (``parallel/collectives.py``), so training differentiates the
+same graph.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from onepose_tpu_torch.ops.match import dual_softmax_argmax
+from onepose_tpu_torch.parallel import collectives as comm
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -115,23 +127,41 @@ def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
 
 
+def _tokens(x: torch.Tensor, group) -> int:
+    """The token count of ``x`` [B, N, C] over ``group``'s shards (equal
+    shards; the local count without a group)."""
+    return x.shape[1] * (1 if group is None else comm.group_size(group))
+
+
 def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     num_heads: int) -> torch.Tensor:
+                     num_heads: int, key_group=None) -> torch.Tensor:
     """Multi-head O(N) linear attention with the elu(x)+1 feature map on
     [B, N, D] tensors, channel c in head c % num_heads. Below fp32 it
     rounds where the JAX package's compiled bf16 graph rounds: elu in the
     inputs' dtype, the +1, V / N, K^T V, the normalizer and the output in
     :func:`_acc_dtype`, the key sum rounded to the inputs' dtype, the
-    result rounded back once."""
+    result rounded back once.
+
+    ``key_group``: the keys and values are this rank's shard of the
+    group's tokens; K^T V and the key sum are summed over the group in
+    one all-reduce, and N is the group's count, so that every rank
+    computes what one rank computes on the whole keys (the key sum
+    rounded after the sum)."""
     b, n, d = q.shape
-    m = k.shape[1]
+    m = _tokens(k, key_group)
     dh = d // num_heads
     acc = _acc_dtype(q)
     qf = (F.elu(q).to(acc) + 1.0).reshape(b, n, dh, num_heads)
-    kf = (F.elu(k).to(acc) + 1.0).reshape(b, m, dh, num_heads)
-    vf = (v.to(acc) * (1.0 / m)).reshape(b, m, dh, num_heads)
+    kf = (F.elu(k).to(acc) + 1.0).reshape(b, -1, dh, num_heads)
+    vf = (v.to(acc) * (1.0 / m)).reshape(b, -1, dh, num_heads)
     kv = torch.einsum("bmdh,bmeh->bdeh", kf, vf)
-    ksum = kf.sum(1).to(q.dtype).to(acc)
+    ksum = kf.sum(1)
+    if key_group is not None:
+        packed = comm.all_reduce_sum(
+            torch.cat([kv.reshape(b, -1), ksum.reshape(b, -1)], 1), key_group)
+        kv, ksum = (packed[:, :kv[0].numel()].reshape(kv.shape),
+                    packed[:, kv[0].numel():].reshape(ksum.shape))
+    ksum = ksum.to(q.dtype).to(acc)
     z = 1.0 / (torch.einsum("bndh,bdh->bnh", qf, ksum) + 1e-6)
     out = torch.einsum("bndh,bdeh->bneh", qf, kv) * z[:, :, None, :]
     return (out * m).to(q.dtype).reshape(b, n, d)
@@ -155,21 +185,32 @@ def _softmax(x: torch.Tensor) -> torch.Tensor:
     return e.to(x.dtype).to(acc) / e.sum(-1, keepdim=True).to(x.dtype).to(acc)
 
 
-def _instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def _instance_norm(x: torch.Tensor, eps: float = 1e-5,
+                   group=None) -> torch.Tensor:
     """InstanceNorm1d over the token axis of [B, N, C], affine=False, its
-    statistics in :func:`_acc_dtype`."""
+    statistics in :func:`_acc_dtype`. ``group``: the tokens are this
+    rank's shard; the mean, then the mean of (x - mean)² (two passes, as
+    ``var`` takes them: Σx² - n·mean² loses digits at D=256), are the
+    group's."""
     x32 = x.to(_acc_dtype(x))
-    mean = x32.mean(dim=1, keepdim=True)
-    var = x32.var(dim=1, unbiased=False, keepdim=True)
+    if group is None:
+        mean = x32.mean(dim=1, keepdim=True)
+        var = x32.var(dim=1, unbiased=False, keepdim=True)
+    else:
+        n = _tokens(x, group)
+        mean = comm.all_reduce_sum(x32.sum(1, keepdim=True), group) / n
+        var = comm.all_reduce_sum(
+            (x32 - mean).square().sum(1, keepdim=True), group) / n
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 def attention_propagation(p: AttentionPropagation, x: torch.Tensor,
-                          source: torch.Tensor,
-                          num_heads: int) -> torch.Tensor:
+                          source: torch.Tensor, num_heads: int,
+                          x_group=None, source_group=None) -> torch.Tensor:
     """One message-passing step; returns the delta (the caller adds the
     residual). Self-attention projects Q, K and V with one fused linear,
-    cross-attention K and V."""
+    cross-attention K and V. ``x_group`` / ``source_group``: the group
+    whose ranks shard ``x``'s / ``source``'s tokens (None: whole)."""
     d, dtype = x.shape[-1], x.dtype
     if x is source:
         w = torch.cat([p.proj_q.weight, p.proj_k.weight, p.proj_v.weight])
@@ -180,16 +221,19 @@ def attention_propagation(p: AttentionPropagation, x: torch.Tensor,
         bias = torch.cat([p.proj_k.bias, p.proj_v.bias])
         k, v = F.linear(source, w.to(dtype), bias.to(dtype)).split(d, dim=-1)
         q = _linear(x, p.proj_q)
-    message = _linear(linear_attention(q, k, v, num_heads), p.merge)
+    message = _linear(linear_attention(q, k, v, num_heads, source_group),
+                      p.merge)
     h = _linear(torch.cat([x, message], dim=-1), p.mlp0)
-    return _linear(F.relu(_instance_norm(h)), p.mlp1)
+    return _linear(F.relu(_instance_norm(h, group=x_group)), p.mlp1)
 
 
 def gats_layer(p: GATsLayer, h_2d: torch.Tensor, h_3d: torch.Tensor,
                cfg: dict) -> torch.Tensor:
     """Leaf-restricted graph attention: each 3D point attends over {self} ∪
-    its num_leaf 2D observations. h_2d [B, N1*L, D], h_3d [B, N1, D] →
-    [B, N1, D]."""
+    its num_leaf 2D observations. h_2d [B, N*L, D] (point-major: row
+    p·L + l), h_3d [B, N, D] → [B, N, D]. Each point reads its own rows
+    only, so a contiguous shard of the points with its leaf rows computes
+    its part of the whole."""
     b, n1, d = h_3d.shape
     num_leaf = h_2d.shape[1] // n1
     acc = _acc_dtype(h_3d)
@@ -243,12 +287,15 @@ def resolve_config(config: Optional[dict]) -> dict:
     return cfg
 
 
-def gnn_body(model: GATsSPG, data: Dict[str, torch.Tensor], cfg: dict):
+def gnn_body(model: GATsSPG, data: Dict[str, torch.Tensor], cfg: dict,
+             token_group=None):
     """The GNN stack + final projection + L2 norm → (mdesc2d [B,N1,D],
     mdesc3d [B,N2,D]). The body computes in bf16 when ``compute_dtype``
     says so, else in the dtype of the model's parameters (fp32; an fp64
     copy of a model gives a reference); the descriptors it returns are
-    fp32 (or fp64) either way."""
+    fp32 (or fp64) either way. ``token_group``: ``descriptors3d_db`` and
+    ``descriptors2d_db`` hold this rank's shard of the group's 3D tokens
+    (module docstring), and so does the mdesc3d returned."""
     dtype = model.final_proj.weight.dtype
     if str(cfg.get("compute_dtype", "float32")) == "bfloat16":
         dtype = torch.bfloat16
@@ -259,8 +306,9 @@ def gnn_body(model: GATsSPG, data: Dict[str, torch.Tensor], cfg: dict):
     def gats_step(p, d2db_, d3db_):
         return gats_layer(p, d2db_, d3db_, cfg)
 
-    def attn_step(p, x, source):
-        return attention_propagation(p, x, source, cfg["num_heads"])
+    def attn_step(p, x, source, x_group=None, source_group=None):
+        return attention_propagation(p, x, source, cfg["num_heads"],
+                                     x_group, source_group)
 
     if cfg["remat"] and torch.is_grad_enabled():
         def remat(fn):
@@ -273,11 +321,11 @@ def gnn_body(model: GATsSPG, data: Dict[str, torch.Tensor], cfg: dict):
             d3db = gats_step(p, d2db, d3db)
         elif kind == 1:   # self
             delta0 = attn_step(p, d2q, d2q)
-            delta1 = attn_step(p, d3db, d3db)
+            delta1 = attn_step(p, d3db, d3db, token_group, token_group)
             d2q, d3db = d2q + delta0, d3db + delta1
         else:             # cross
-            delta0 = attn_step(p, d2q, d3db)
-            delta1 = attn_step(p, d3db, d2q)
+            delta0 = attn_step(p, d2q, d3db, None, token_group)
+            delta1 = attn_step(p, d3db, d2q, token_group, None)
             d2q, d3db = d2q + delta0, d3db + delta1
     out = model.final_proj.weight.dtype
     return (_unit(_linear(d2q, model.final_proj).to(out)),
@@ -309,10 +357,19 @@ def _mutual_threshold(indices0, max0, indices1, max1, match_threshold,
 
 
 def dual_softmax_conf(mdesc0: torch.Tensor, mdesc1: torch.Tensor,
-                      scale_factor: float) -> torch.Tensor:
-    """The [B, N1, N2] dual-softmax confidence matrix."""
+                      scale_factor: float, col_group=None) -> torch.Tensor:
+    """The [B, N1, N2] dual-softmax confidence matrix. ``col_group``:
+    mdesc1 is this rank's shard of the group's N2 tokens, and the result
+    its columns; the softmax over N1 is local, the one over N2 takes its
+    row max (detached: the shift moves no gradient) and its row sum of
+    exponentials over the group."""
     s = torch.einsum("bnd,bmd->bnm", mdesc0, mdesc1) / scale_factor
-    return torch.softmax(s, dim=1) * torch.softmax(s, dim=2)
+    if col_group is None:
+        return torch.softmax(s, dim=1) * torch.softmax(s, dim=2)
+    e = torch.exp(s - comm.all_reduce_max(s.amax(2, keepdim=True),
+                                          col_group))
+    return torch.softmax(s, dim=1) * (
+        e / comm.all_reduce_sum(e.sum(2, keepdim=True), col_group))
 
 
 def dual_softmax_match(mdesc0: torch.Tensor, mdesc1: torch.Tensor,
@@ -351,15 +408,27 @@ def forward(model: GATsSPG, data: Dict[str, torch.Tensor],
 
 @torch.no_grad()
 def forward_match_only(model: GATsSPG, data: Dict[str, torch.Tensor],
-                       config: Optional[dict] = None) -> MatchOutput:
+                       config: Optional[dict] = None,
+                       token_group=None) -> MatchOutput:
     """Inference forward through the fused dual-softmax argmax
     (``ops.match``): the [B, N1, N2] conf matrix is never formed on the
     card, and ``conf_matrix`` is an empty [B, 0, 0] placeholder. The port's
     pipeline always matches through here; the JAX pipeline's
-    ``use_pallas_match`` switch has no counterpart."""
+    ``use_pallas_match`` switch has no counterpart.
+
+    ``token_group``: the 3D inputs (``mask3d`` too) are this rank's token
+    shard (:func:`gnn_body`); mdesc3d and mask3d are all-gathered over the
+    group first, as XLA gathers the operands of the unpartitioned
+    ``pallas_call``, so the kernel sees whole rows and every rank returns
+    the whole outputs."""
     cfg = resolve_config(config)
-    m0, m1 = gnn_body(model, data, cfg)
+    m0, m1 = gnn_body(model, data, cfg, token_group)
+    mask3d = data.get("mask3d")
+    if token_group is not None:
+        m1 = comm.all_gather_cat(m1, 1, token_group)
+        if mask3d is not None:
+            mask3d = comm.all_gather_cat(mask3d, 1, token_group)
     idx0, max0, idx1, max1 = dual_softmax_argmax(m0, m1, cfg["scale_factor"])
     out = _mutual_threshold(idx0, max0, idx1, max1, cfg["match_threshold"],
-                            data.get("mask2d"), data.get("mask3d"))
+                            data.get("mask2d"), mask3d)
     return MatchOutput(*out, m0.new_zeros((m0.shape[0], 0, 0)))

@@ -12,6 +12,13 @@ The tensor helpers (:func:`all_reduce`, :func:`broadcast`,
 or return on that device. NCCL needs CUDA tensors; gloo takes CPU tensors,
 and CUDA tensors too for all three (ranks that share a card run over
 gloo; ``chip_smoke.py`` phase 14 runs them so). Booleans travel as uint8.
+
+Under autograd (GATsSPG's token-sharded model axis): :func:`all_reduce_sum`
+(its backward all-reduces the gradient), :func:`all_gather_cat` (its
+backward sums the gradient over the group and keeps this rank's slice, a
+reduce-scatter) and :func:`all_reduce_max` (no gradient: a softmax's
+shift). Each takes CUDA tensors on NCCL and on gloo (``chip_smoke.py``
+phase 15 runs both), so none stages through the host.
 """
 from __future__ import annotations
 
@@ -144,3 +151,55 @@ def psum_metrics(values: Dict[str, torch.Tensor], mesh=None,
     whole world without a mesh); new tensors, the inputs untouched."""
     group = mesh.get_group(axis_name) if mesh is not None else None
     return {k: all_reduce(v.clone(), "sum", group) for k, v in values.items()}
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce(t.clone(memory_format=torch.contiguous_format),
+                          "sum", group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.clone(memory_format=torch.contiguous_format),
+                          "sum", ctx.group), None
+
+
+class _AllGatherCat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group, ctx.n = dim, group, t.shape[dim]
+        return torch.cat(tuple(all_gather(t, group)), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = all_reduce(grad.clone(memory_format=torch.contiguous_format),
+                           "sum", ctx.group)
+        rank = dist.get_rank(ctx.group)
+        return total.narrow(ctx.dim, rank * ctx.n, ctx.n), None, None
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """Σ of every rank's ``t`` over ``group``, a new tensor, under
+    autograd: each rank's loss is its share of the group's, so the
+    gradient of ``t`` is the sum of every rank's gradient of the result."""
+    if group_size(group) == 1:
+        return t
+    return _AllReduceSum.apply(t, group)
+
+
+def all_gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in group-rank order
+    (equal shapes), under autograd: the gradient of ``t`` is this rank's
+    slice of the group's summed gradient."""
+    if group_size(group) == 1:
+        return t
+    return _AllGatherCat.apply(t, dim, group)
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise max of every rank's ``t`` over ``group``, detached: a
+    softmax's shift, which moves no gradient."""
+    return all_reduce(t.detach().clone(
+        memory_format=torch.contiguous_format), "max", group)

@@ -10,8 +10,12 @@ package reshapes its device list: rank = data index × model size + model
 index.
 
 - ``data``: the batch (data parallelism);
-- ``model``: serving's object catalog (``serving.PoseServer``). Sharding
-  the matcher's 3D tokens over it is not ported yet (ROADMAP Queue 1).
+- ``model``: serving's object catalog (``serving.PoseServer``), and
+  GATsSPG's 3D tokens in the pipeline and the train steps
+  (``PosePipeline``, ``train/trainer.py``): each rank of a model group
+  holds a contiguous shard of the N2 tokens (:func:`token_rows`) and the
+  GNN runs over the group's process group (``gats_spg``'s
+  ``token_group``).
 """
 from __future__ import annotations
 
@@ -22,11 +26,6 @@ import torch
 import torch.distributed as dist
 
 from onepose_tpu_torch.parallel import collectives as comm
-
-# what every path that would shard the matcher's 3D tokens raises with
-TOKEN_AXIS_TODO = ("sharding GATsSPG's 3D tokens over the mesh's model axis "
-                   "is not ported (ROADMAP Queue 1: the token-sharded model "
-                   "axis)")
 
 
 def make_mesh(n_devices: Optional[int] = None,
@@ -86,6 +85,43 @@ def data_rows(mesh, n: int) -> slice:
     per = n // size
     lo = axis_index(mesh, "data") * per
     return slice(lo, lo + per)
+
+
+def token_group(mesh, n2: int):
+    """The model axis's process group when it shards ``n2`` 3D tokens:
+    an axis above 1 that divides ``n2``. Else None: every rank holds the
+    whole tokens (replicated over ``model``). The JAX pipeline decides by
+    each DB tensor's leading axis; the three it shards (``descriptors3d``
+    [N2, D], ``descriptors2d_db`` [N2·L, D], ``mask3d`` [N2]) all divide
+    when N2 does, so one decision by N2 is the same rule. Either way the
+    math is the same."""
+    m = axis_size(mesh, "model")
+    if m == 1 or n2 % m:
+        return None
+    return axis_group(mesh, "model")
+
+
+def token_rows(mesh, n2: int) -> slice:
+    """This rank's contiguous slice of ``n2`` 3D tokens: the model
+    index's n2/m of them when :func:`token_group` shards them, else all."""
+    if token_group(mesh, n2) is None:
+        return slice(0, n2)
+    per = n2 // axis_size(mesh, "model")
+    lo = axis_index(mesh, "model") * per
+    return slice(lo, lo + per)
+
+
+def token_shard(mesh, n2: int, tensors: dict, dim: int = 0) -> dict:
+    """Each tensor's part of this rank's :func:`token_rows` along ``dim``,
+    whose length is a multiple k of ``n2`` (token-major: rows [lo·k,
+    hi·k), as the point-major leaf rows of ``descriptors2d_db`` lie).
+    Views, not copies."""
+    rows = token_rows(mesh, n2)
+    out = {}
+    for name, t in tensors.items():
+        k = t.shape[dim] // n2
+        out[name] = t.narrow(dim, rows.start * k, (rows.stop - rows.start) * k)
+    return out
 
 
 def shard_batch(mesh, batch, device):

@@ -5,7 +5,8 @@ matching (``forward_match_only``, through the fused dual-softmax kernel on
 a card) → batched LO-RANSAC PnP. Everything stays on the pipeline's device
 between the image upload and the poses. With ``mesh=`` (a world of ranks,
 one card each, ``parallel/mesh.py``) the batch is split over the data
-axis and every rank returns the whole batch's outputs.
+axis, the object's 3D tokens over the model axis, and every rank returns
+the whole batch's outputs.
 
 Importing this module pins fp32 (``ops.precision.pin_fp32``): the PnP
 solvers need it, and cuDNN would otherwise run the convs in TF32.
@@ -64,13 +65,16 @@ def poses_from_matches(keypoints2d: torch.Tensor, kpt_mask: torch.Tensor,
 
 def match_rows(gats_model: gats_spg.GATsSPG,
                det: superpoint.SuperPointOutput, db_rows: dict,
-               gats_config: dict) -> gats_spg.MatchOutput:
+               gats_config: dict, token_group=None) -> gats_spg.MatchOutput:
     """GATsSPG 2D-3D matching of B frames, frame b against DB row b.
 
     ``db_rows`` holds ``descriptors3d``, ``descriptors2d_db`` and ``mask3d``
     with a leading [B] axis: one object's DB expanded over the batch, or
     rows gathered from a stack of objects. Descriptors stored in a lower
-    precision are upcast here; the matcher computes in fp32."""
+    precision are upcast here; the matcher computes in fp32.
+    ``token_group``: the three hold this rank's shard of the group's 3D
+    tokens (``gats_spg.forward_match_only``); the matches index the whole
+    tokens."""
     data = {
         "descriptors2d_query": det.descriptors,
         "descriptors3d_db": db_rows["descriptors3d"].float(),
@@ -78,7 +82,8 @@ def match_rows(gats_model: gats_spg.GATsSPG,
         "mask2d": det.mask,
         "mask3d": db_rows["mask3d"],
     }
-    return gats_spg.forward_match_only(gats_model, data, gats_config)
+    return gats_spg.forward_match_only(gats_model, data, gats_config,
+                                       token_group)
 
 
 @torch.no_grad()
@@ -88,13 +93,15 @@ def frame_step(sp_model: superpoint.SuperPoint,
                gats_config: dict, noise: Optional[epnp.RansacNoise] = None,
                generator: Optional[torch.Generator] = None,
                reproj_threshold: float = 5.0, num_hypotheses: int = 512,
-               refine_iters: int = 5) -> PoseOutput:
+               refine_iters: int = 5, token_group=None) -> PoseOutput:
     """Frames → poses: extraction, :func:`match_rows` and
     :func:`poses_from_matches`. images [B, H, W, 1]; Ks [B, 3, 3];
-    ``db_rows`` as for :func:`match_rows`, with ``keypoints3d`` [B, N2, 3].
-    Both :class:`PosePipeline` and the multi-object server run this."""
+    ``db_rows`` as for :func:`match_rows` (``token_group`` too), with
+    ``keypoints3d`` [B, N2, 3] whole. Both :class:`PosePipeline` and the
+    multi-object server run this (the server with whole tokens: its model
+    axis shards objects)."""
     det = superpoint.extract(sp_model, images, sp_config)
-    match = match_rows(gats_model, det, db_rows, gats_config)
+    match = match_rows(gats_model, det, db_rows, gats_config, token_group)
     pnp = poses_from_matches(
         det.keypoints, det.mask, match.matches0, db_rows["keypoints3d"], Ks,
         noise=noise, generator=generator, reproj_threshold=reproj_threshold,
@@ -141,9 +148,14 @@ class PosePipeline:
     ``mesh`` (``parallel/mesh.py``, ("data", "model") axes over a world
     of ranks): the models and the DB are broadcast from rank 0, each rank
     runs its rows of the batch on its card (the data-axis size must
-    divide the batch), and the outputs are all-gathered, so every rank
-    returns the whole batch's. A model axis above 1 raises (it would shard
-    the matcher's 3D tokens, ``parallel.mesh.TOKEN_AXIS_TODO``)."""
+    divide the batch), and the outputs are all-gathered over ``data``, so
+    every rank returns the whole batch's. A model axis of m > 1 shards the
+    object's N2 3D tokens when m divides N2 (``pmesh.token_rows``): each
+    rank keeps its N2/m rows of ``descriptors3d``, ``descriptors2d_db``
+    and ``mask3d``, and ``keypoints3d`` whole (PnP gathers from it); the
+    ranks of a model group run the same rows' extraction and PnP, and
+    the GNN over the group (``gats_spg``'s ``token_group``). When m does
+    not divide N2 every rank holds the whole DB: the same math."""
 
     def __init__(self, sp_model: superpoint.SuperPoint,
                  gats_model: gats_spg.GATsSPG, db: ObjectDB,
@@ -154,9 +166,6 @@ class PosePipeline:
                  refine_iters: int = 5,
                  device: torch.device | str = "cuda",
                  mesh=None):
-        if pmesh.axis_size(mesh, "model") > 1:
-            raise NotImplementedError(
-                f"PosePipeline(mesh=...): {pmesh.TOKEN_AXIS_TODO}")
         pin_fp32()
         self.sp_config = dict(superpoint.DEFAULT_CONFIG)
         self.sp_config.update(sp_config or {})
@@ -172,6 +181,12 @@ class PosePipeline:
         self.gats_model = pmesh.replicate(mesh, gats_model,
                                           self.device).eval()
         self.db = pmesh.replicate(mesh, db, self.device)
+        n2 = len(self.db["keypoints3d"])
+        self.token_group = pmesh.token_group(mesh, n2)
+        if self.token_group is not None:    # keep this rank's shard only
+            self.db.update({k: v.clone() for k, v in pmesh.token_shard(
+                mesh, n2, {k: self.db[k] for k in (
+                    "descriptors3d", "descriptors2d_db", "mask3d")}).items()})
         self.reproj_threshold = reproj_threshold
         self.num_hypotheses = num_hypotheses
         self.refine_iters = refine_iters
@@ -186,7 +201,7 @@ class PosePipeline:
     def match(self, det: superpoint.SuperPointOutput) -> gats_spg.MatchOutput:
         return match_rows(self.gats_model, det,
                           self.rows(det.descriptors.shape[0]),
-                          self.gats_config)
+                          self.gats_config, self.token_group)
 
     def pose(self, det: superpoint.SuperPointOutput,
              match: gats_spg.MatchOutput, Ks: torch.Tensor,
@@ -233,5 +248,5 @@ class PosePipeline:
             images, Ks, self.sp_config, self.gats_config, noise=noise,
             generator=generator, reproj_threshold=self.reproj_threshold,
             num_hypotheses=self.num_hypotheses,
-            refine_iters=self.refine_iters)
+            refine_iters=self.refine_iters, token_group=self.token_group)
         return out if self.mesh is None else gather_rows(self.mesh, out)

@@ -1,4 +1,4 @@
-"""Trainer for the GATsSPG matcher on one device.
+"""Trainer for the GATsSPG matcher, on one device or a mesh of ranks.
 
 Port of ``onepose_tpu/train/trainer.py``: focal loss on the dual-softmax
 confidence matrix, and the optimizer of the reference's Lightning module
@@ -37,6 +37,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from onepose_tpu_torch.models import convert, gats_spg
 from onepose_tpu_torch.parallel import collectives as comm
@@ -214,19 +215,24 @@ def init_train_state(tx: Callable[..., Optimizer],
 def compute_loss(model: gats_spg.GATsSPG, batch: Dict[str, torch.Tensor],
                  gats_config: Optional[dict] = None,
                  loss_config: Optional[dict] = None,
-                 group=None) -> torch.Tensor:
+                 group=None, token_group=None) -> torch.Tensor:
     """batch keys: descriptors2d_query / descriptors3d_db /
     descriptors2d_db ([B, N, D]) and conf_gt [B, N1, N2] (pads encoded as
     negatives, the reference's convention). The conf matrix is
     ``forward_train``'s; its matches are not formed.
 
-    ``group``: the batch is this rank's rows of a batch split over the
-    group's ranks. The focal loss's match and non-match counts are then
-    summed over the group first, and this returns the rank's share of the
-    whole batch's loss (the shares sum to it)."""
+    ``token_group``: the batch's 3D tokens and conf_gt's columns are this
+    rank's shard of the group's (``gats_spg.gnn_body``), and the conf
+    matrix is this rank's columns of the whole one.
+
+    ``group``: the batch (rows, columns) is this rank's part of a batch
+    split over the group's ranks. The focal loss's match and non-match
+    counts are then summed over the group first, and this returns the
+    rank's share of the whole batch's loss (the shares sum to it)."""
     cfg = gats_spg.resolve_config(gats_config)
-    m0, m1 = gats_spg.gnn_body(model, batch, cfg)
-    conf = gats_spg.dual_softmax_conf(m0, m1, cfg["scale_factor"])
+    m0, m1 = gats_spg.gnn_body(model, batch, cfg, token_group)
+    conf = gats_spg.dual_softmax_conf(m0, m1, cfg["scale_factor"],
+                                      token_group)
     loss_config = dict(loss_config or {})
     weights = {k: loss_config.pop(k) for k in ("pos_weight", "neg_weight")
                if k in loss_config}
@@ -238,29 +244,33 @@ def compute_loss(model: gats_spg.GATsSPG, batch: Dict[str, torch.Tensor],
     return focal_combine(pos_sum, neg_sum, n_pos, n_neg, **weights)
 
 
-def _check_mesh(mesh):
-    """The data-parallel steps split the batch over ``mesh``'s data axis;
-    a model axis above 1 would shard the matcher's tokens."""
-    if pmesh.axis_size(mesh, "model") > 1:
-        raise NotImplementedError(f"training: {pmesh.TOKEN_AXIS_TODO}")
-
-
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                gats_config: Optional[dict] = None, mesh=None
                ) -> Tuple[TrainState, torch.Tensor]:
     """Loss, gradients and one optimizer micro-step → (state, loss).
 
     ``mesh``: ``batch`` is this rank's rows of the global batch, split
-    over the data axis. The step is the global batch's, as the JAX
-    package's step over a data mesh is: the loss's counts are the global
-    batch's (``compute_loss(group=...)``), each rank's gradient of its
-    share is summed over the ranks (not averaged: the shares already
-    divide by the global counts), and every rank then clips and steps
-    the same way on the same gradients. The loss returned is the global
-    batch's."""
-    _check_mesh(mesh)
-    group = None if mesh is None else pmesh.axis_group(mesh, "data")
-    loss = compute_loss(state.model, batch, gats_config, group=group)
+    over the data axis; with a model axis of m > 1 its
+    ``descriptors3d_db`` and ``descriptors2d_db`` also hold this rank's
+    N2/m 3D tokens and its ``conf_gt`` their columns
+    (``pmesh.token_shard``; the JAX dryrun's ``_batch_specs``). The step
+    is the global batch's, as the JAX package's step over the mesh is:
+    the loss's counts are the global batch's, summed over the world
+    (``compute_loss(group=...)``), each rank's gradient of its share is
+    summed over the world (not averaged: the shares already divide by the
+    global counts), and every rank then clips and steps the same way on
+    the same gradients. The loss returned is the global batch's.
+
+    The 2D stream is computed whole on every rank of a model group; each
+    rank's loss holds its own columns only, so the world's sum counts the
+    2D stream's gradient once (a loss computed whole on every rank, or a
+    mean, would count it m times)."""
+    token_group = None
+    if pmesh.axis_size(mesh, "model") > 1:
+        token_group = pmesh.axis_group(mesh, "model")
+    group = None if mesh is None else dist.group.WORLD
+    loss = compute_loss(state.model, batch, gats_config, group=group,
+                        token_group=token_group)
     loss.backward()
     if group is not None:
         params = list(state.model.parameters())
@@ -279,8 +289,8 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
 def make_train_step(gats_config: Optional[dict] = None, mesh=None):
     """step(state, batch) -> (state, loss) on dense batches (this rank's
-    rows under ``mesh``)."""
-    _check_mesh(mesh)
+    rows, and tokens under a model axis, under ``mesh``: see
+    :func:`train_step`)."""
     return functools.partial(train_step, gats_config=gats_config, mesh=mesh)
 
 
@@ -389,10 +399,16 @@ def gather_train_step(state: TrainState, light: Dict[str, torch.Tensor],
                       mesh=None) -> Tuple[TrainState, torch.Tensor]:
     """:func:`materialize_light_batch`, then :func:`train_step` (under
     ``mesh`` on this rank's rows of the light batch, leaf uniforms
-    included: the global batch's draws split by rows)."""
+    included: the global batch's draws split by rows; under a model axis
+    then on this rank's token shard and its columns of conf_gt)."""
     with torch.no_grad():
         batch = materialize_light_batch(db, light, shape2d, shape3d,
                                         pad_val, num_leaf)
+        batch.update(pmesh.token_shard(mesh, shape3d, {
+            k: batch[k] for k in ("descriptors3d_db", "descriptors2d_db")},
+            dim=1))
+        batch.update(pmesh.token_shard(mesh, shape3d, {
+            "conf_gt": batch["conf_gt"]}, dim=2))
     return train_step(state, batch, gats_config, mesh)
 
 
@@ -405,8 +421,11 @@ def make_gather_train_step(gats_config: Optional[dict],
     ``db`` already on the training device; light batches carrying
     ``leaf_uniform`` (instead of ``leaf_idx``) sample their leaves on the
     device, from the db's ``count_stack`` / ``offset_stack``. ``mesh``:
-    see :func:`train_step`."""
-    _check_mesh(mesh)
+    see :func:`train_step`; a model axis must divide ``shape3d``."""
+    m = pmesh.axis_size(mesh, "model")
+    if shape3d % m:
+        raise ValueError(f"shape3d {shape3d} not divisible by the model "
+                         f"axis {m}")
     return functools.partial(
         gather_train_step, db=db, gats_config=gats_config, shape2d=shape2d,
         shape3d=shape3d, pad_val=pad_val, num_leaf=num_leaf, mesh=mesh)

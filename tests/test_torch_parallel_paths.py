@@ -322,17 +322,6 @@ def test_pipeline_world2_matches_one_rank_and_jax_mesh(pipeline_scene):
         _assert_outputs(drawn, one_drawn, atol=1e-5)
 
 
-def test_pipeline_refuses_a_token_sharded_model_axis(pipeline_scene):
-    from test_torch_parallel import FakeMesh
-
-    db = pipeline_scene[2]
-    with pytest.raises(NotImplementedError, match="token-sharded model axis"):
-        tpipe.PosePipeline(None, None, _port_db(db), device="cpu",
-                           mesh=FakeMesh(2, 2))
-    with pytest.raises(NotImplementedError, match="token-sharded model axis"):
-        tt.make_train_step(TRAIN_CFG, mesh=FakeMesh(2, 2))
-
-
 # --------------------------------------------------------------------------
 # serving
 # --------------------------------------------------------------------------
