@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``onepose_tpu_torch/csrc`` at
 first use (into ``build/onepose_tpu_torch/``, counted in this run's time)
-and runs fifteen phases; weights and inputs come from fixed seeds.
+and runs seventeen phases; weights and inputs come from fixed seeds.
 
   1. card name and power limit (nvidia-smi);
   2. kernel build time, ptxas register use, and the count of tensor-core
@@ -140,14 +140,36 @@ and runs fifteen phases; weights and inputs come from fixed seeds.
      within rtol 1e-3 and atol 1e-3·max|g|, two steps' losses within
      rtol 1e-4, every rank's parameters after them bit-equal; ms a
      pipeline batch and a train step, and peak memory, a rank and one
-     rank.
+     rank;
+ 16. PnP's stages: ``ransac_pnp``'s cumulative ``profile_prefix`` stages
+     (solve, score, lo, refit, full) at scripts/profile_pnp.py's protocol
+     shape (B=8, N=1024, 35% inliers, 512 hypotheses, LO 64, refine 5),
+     one injected noise for all: median ms of 10 calls (CUDA events around
+     the call, dispatch included), busy ms, device ops and host waits of
+     one profiled call, each stage's increment; the full prefix bit-equal
+     to ``profile_prefix=None``, each prefix on the card against the CPU
+     on a small scene (B=2, N=128; poses within 1e-4, inliers equal), the
+     full solve's pose within phase 5's bound. Measurement calls: no
+     kernel runs in PnP;
+ 17. the real-assets eval entry: ``onepose_tpu_torch.eval_real.main``
+     end to end on a synthetic capture in the dataset layout under
+     ``build/chip_smoke_eval/`` (48 ring views of 512x512: 32 to SfM, 16
+     evaluated; the object and sequence names of configs/datasets/
+     *_sample.txt), the weights written as the reference's checkpoint
+     files (SuperPoint and GATsSPG at full width, random from seeds;
+     SuperGlue planted as in 11a), SfM not skipped (at most 2000 points,
+     test_sample's shape3d): rc 0, cmd1/3/5 in [0, 1] in the baseline
+     appended under ``--out``, the per-sequence report written, the stem
+     kernel launched by SfM and the match kernel by inference (the bf16
+     preset skips the stem there), ``--check`` on a missing data_dir
+     returning 1; each stage's seconds.
 
 ``--phases 2,11a,12,14,15`` runs a subset (phase 1 always; 14 needs 11a
 and 12) and prints neither the kernels line nor the final line. Each main
-path (phases 7, 8, 9, 10b, 11a, 12d, 14's (a)-(c) and 15's (a)-(b) on
-every rank) is driven once with the launch counts set to 0 just before
-it and read just after; the kernels line sums those counts, every rank's
-included. Every
+path (phases 7, 8, 9, 10b, 11a, 12d, 14's (a)-(c), 15's (a)-(b) on
+every rank, and 17) is driven once with the launch counts set to 0 just
+before it and read just after; the kernels line sums those counts, every
+rank's included. Every
 phase's launches, comparisons included, are in the JSON. Detailed
 results go to ``DIR/chip_smoke.json`` and ``DIR/profile.txt`` (default
 ``build/chip_smoke``). Any failed phase makes the script exit 1 without
@@ -216,6 +238,16 @@ TRAIN_WARMUP, TRAIN_TIMED = 6, 24  # 12c: micro-steps
 # 12b: the card's gradients against fp64, of their largest entry: above
 # fp32's 2e-3 to 1e-2 on this model (train_card_vs_cpu says why)
 TRAIN_GRAD_GATE = 5e-2
+# phase 16: scripts/profile_pnp.py's protocol shape
+PNP_B, PNP_N = 8, 1024
+# phase 17: the synthetic capture's object and sequences, those that
+# configs/datasets/{sfm,eval}_sample.txt name; views along the ring, every
+# third held out from SfM for evaluation (32 SfM, 16 evaluated)
+EVAL_OBJECT, SFM_SEQ, EVAL_SEQ = ("0501-matchafranzzi-box", "matchafranzzi-1",
+                                  "matchafranzzi-4")
+EVAL_VIEWS = 48
+EVAL_WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_eval")
 # phase 13: the bf16 gate's seeds, frames a seed, their size and keypoints,
 # and the DB points each frame plants
 GATE_SEEDS, GATE_FRAMES, GATE_HW, GATE_KPTS, GATE_POINTS = 4, 4, 256, 512, 96
@@ -2483,11 +2515,197 @@ class Smoke:
                    f"largest entry: one rank {vs64['one rank']:.2e}, the "
                    f"world {vs64['world']:.2e}")
 
+    # -- 16 ---------------------------------------------------------------
+    def pnp_stages(self):
+        """16: ``ransac_pnp``'s cumulative stage prefixes on the card at
+        scripts/profile_pnp.py's protocol shape (B=8, N=1024, 35% inliers,
+        512 hypotheses, LO 64, refine 5), one injected noise for every
+        prefix: median ms of 10 calls after 3 warm-up by CUDA events
+        around the call (dispatch included: PnP is host-bound; the
+        prefixes in turns), busy ms,
+        device ops and host waits of one profiled call, and each prefix's
+        increment. The full prefix bit-equal to ``profile_prefix=None``,
+        every prefix on the card against the CPU on a small scene (B=2,
+        N=128) with the same noise, and the full solve's pose within
+        phase 5's bound."""
+        from onepose_tpu_torch.ops import epnp
+        from onepose_tpu_torch.utils import geometry as geo
+
+        stats = self.results["pnp_stages"] = {"shape": [PNP_B, PNP_N],
+                                              "card": self.smi}
+        t = lambda x: torch.from_numpy(x).to(self.dev)  # noqa: E731
+        k2, k3, msk, Ks, pose_gt = pnp_profile_scene(PNP_B, PNP_N)
+        args = tuple(t(x) for x in (k2, k3, msk, Ks))
+        noise = epnp.draw_noise(PNP_B, PNP_N, HYP, 64, torch.Generator(
+            self.dev).manual_seed(16), self.dev)
+
+        def solve(prefix, args=args, noise=noise):
+            return epnp.ransac_pnp(*args, reproj_threshold=5.0,
+                                   num_hypotheses=HYP, refine_iters=5,
+                                   noise=noise, profile_prefix=prefix)
+
+        # the prefixes timed in turns, so that the host's drift between
+        # calls falls on each of them alike
+        times = {p: [] for p in epnp.PROFILE_PREFIXES}
+        for prefix in times:
+            event_ms(lambda: solve(prefix), 0, 3)
+        for _ in range(10):
+            for prefix in times:
+                times[prefix] += event_ms(lambda: solve(prefix), 1, 0)
+        rows, prev = {}, 0.0
+        for prefix in epnp.PROFILE_PREFIXES:
+            ms = float(np.median(times[prefix]))
+            prof, table = device_profile(lambda: solve(prefix))
+            rows[prefix] = {"ms": ms, "increment_ms": ms - prev,
+                            "spread_ms": [min(times[prefix]),
+                                          max(times[prefix])],
+                            "busy_ms": prof["busy_ms"],
+                            "device_ops": prof["device_ops"],
+                            "host_syncs": prof["host_syncs"]}
+            prev = ms
+            with open(os.path.join(self.out_dir, "profile.txt"), "a") as f:
+                f.write(f"\n== pnp prefix {prefix}: {prof}\n{table}")
+        stats["prefixes"] = rows
+        for prefix, r in rows.items():
+            log(f"   pnp {prefix:6s} {r['ms']:8.3f} ms "
+                f"(+{r['increment_ms']:8.3f}), busy {r['busy_ms']:.3f} ms, "
+                f"{r['device_ops']} "
+                f"device ops, {r['host_syncs']} host waits  [{self.smi}]")
+
+        full, whole = solve("full"), solve(None)
+        same = all(torch.equal(a, b) for a, b in zip(full, whole))
+        self.check(same, "pnp stages: the full prefix bit-equal to "
+                   "profile_prefix=None")
+        errs = [geo.query_pose_error(full.pose[b].cpu().numpy(), pose_gt)
+                for b in range(PNP_B)]
+        stats["full_pose_err"] = errs
+        self.check(all(r < POSE_DEG and c < POSE_CM for r, c in errs),
+                   f"pnp stages: the full solve recovers the scene's pose "
+                   f"within {POSE_DEG} deg / {POSE_CM} cm: worst "
+                   f"{max(e[0] for e in errs):.4f} deg, "
+                   f"{max(e[1] for e in errs):.4f} cm")
+        self.pnp_card_vs_cpu(stats)
+
+    def pnp_card_vs_cpu(self, stats):
+        """16: every prefix on the card and on the CPU, a small scene of
+        the same kind (B=2, N=128) with the same injected noise: poses
+        within 1e-4, inlier counts and masks equal."""
+        from onepose_tpu_torch.ops import epnp
+
+        k2, k3, msk, Ks, _ = pnp_profile_scene(2, 128)
+        noise = epnp.draw_noise(2, 128, HYP, 64,
+                                torch.Generator().manual_seed(16))
+        cpu = tuple(torch.from_numpy(x) for x in (k2, k3, msk, Ks))
+        rows = {}
+        for prefix in epnp.PROFILE_PREFIXES:
+            res = {}
+            for side, dev in (("card", self.dev), ("cpu", torch.device(
+                    "cpu"))):
+                res[side] = epnp.ransac_pnp(
+                    *(x.to(dev) for x in cpu), reproj_threshold=5.0,
+                    num_hypotheses=HYP, refine_iters=5,
+                    noise=to_device(noise, dev), profile_prefix=prefix)
+            a, b = (epnp.PnPResult(*(x.cpu() for x in res[s]))
+                    for s in ("card", "cpu"))
+            rows[prefix] = {
+                "pose_diff": float((a.pose - b.pose).abs().max()),
+                "counts": [a.num_inliers.tolist(), b.num_inliers.tolist()],
+                "masks_equal": bool(torch.equal(a.inliers, b.inliers))}
+        stats["card_vs_cpu"] = rows
+        self.check(all(r["pose_diff"] <= 1e-4 and r["masks_equal"]
+                       and r["counts"][0] == r["counts"][1]
+                       for r in rows.values()),
+                   "pnp stages: card vs CPU at B=2, N=128 (pose max diff, "
+                   "masks equal): " + ", ".join(
+                       f"{p} {r['pose_diff']:.1e} {r['masks_equal']}"
+                       for p, r in rows.items()))
+
+    # -- 17 ---------------------------------------------------------------
+    def eval_entry(self):
+        """17: ``python -m onepose_tpu_torch.eval_real``'s ``main`` end to
+        end on a synthetic capture in the dataset layout, SfM not skipped:
+        the SfM step (``run.sfm``: the stem kernel in ``extract_to_h5``,
+        SuperGlue planted on the views' descriptors) builds the object's
+        annos, then ``inference.inference`` at test_sample's width (the
+        entries' bf16 preset, which skips the stem; the match kernel)
+        evaluates the held-out views; the metrics appended to a baseline
+        under ``--out``. Weights random from seeds, written as the
+        reference's checkpoint files."""
+        import shutil
+
+        from onepose_tpu_torch import eval_real
+        from onepose_tpu_torch.models import convert
+        from onepose_tpu_torch.utils import model_io
+
+        stats = self.results["eval_entry"] = {"card": self.smi}
+        shutil.rmtree(EVAL_WORK, ignore_errors=True)
+        data = os.path.join(EVAL_WORK, "data")
+        rng = np.random.default_rng(17)
+        sp_model, sg_params = write_eval_capture(data, rng, self.dev)
+        torch.save(sp_model.state_dict(), os.path.join(
+            mkdirs(data, "models", "extractors", "SuperPoint"),
+            "superpoint_v1.pth"))
+        torch.save(convert.superglue_to_state_dict(sg_params), os.path.join(
+            mkdirs(data, "models", "matchers", "SuperGlue"),
+            "superglue_outdoor.pth"))
+        model_io.save_gats_spg(
+            convert.gats_spg_from_jax(convert.init_gats_spg_params(rng)),
+            os.path.join(data, "models", "checkpoints", "onepose",
+                         "GATsSPG.ckpt"))
+
+        # the baseline and the reports go to --out, each run's own
+        baseline = os.path.join(self.out_dir, "BASELINE_eval_entry.md")
+        eval_dir = os.path.join(self.out_dir, "eval_entry")
+        shutil.rmtree(eval_dir, ignore_errors=True)
+        if os.path.exists(baseline):
+            os.remove(baseline)
+        # SfM keeps at most test_sample's shape3d points: the DB is
+        # padded to shape3d, and build_object_db refuses a larger object
+        # (sfm_spp_spg_sample keeps up to 2500; this capture gives 2362)
+        overrides = [f"data_dir={data}", f"output.eval_dir={eval_dir}",
+                     f"dataset.max_num_kp3d={SHAPE3D}", "print_config=False"]
+        cwd = os.getcwd()
+        try:
+            rc = self.path_launches("eval_entry", lambda: eval_real.main(
+                ["--experiments", "test_sample", "--baseline-out", baseline,
+                 "-o", *overrides]))
+            rc_missing = eval_real.main(
+                ["--check", "--experiments", "test_sample", "-o",
+                 f"data_dir={EVAL_WORK}/missing", "print_config=False"])
+        finally:
+            os.chdir(cwd)
+        # the appended section: the metric rows, and the stages' seconds
+        # on its "Stage times: sfm 36.6 s, inference 0.9 s (card)" line
+        text = open(baseline).read()
+        metrics = {k: float(v) for k, v in (
+            line.strip("| ").split(" | ") for line in text.splitlines()
+            if line.startswith("| cmd"))}
+        times = text.split("Stage times: ")[-1].split(" (")[0]
+        seconds = {k: float(v) for k, v in (
+            t.split()[:2] for t in times.split(", "))}
+        report = os.path.join(eval_dir, f"{EVAL_OBJECT}{EVAL_SEQ}.txt")
+        stats.update(rc=rc, rc_check_missing=rc_missing, metrics=metrics,
+                     stage_s=seconds, report=os.path.exists(report),
+                     launches=self.results["launches"]["eval_entry"])
+        log(f"   eval entry: rc {rc}, {metrics}, stages " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in seconds.items())
+            + f", launches {stats['launches']}  [{self.smi}]")
+        self.check(rc == 0 and set(metrics) == {"cmd1", "cmd3", "cmd5"}
+                   and all(0.0 <= v <= 1.0 for v in metrics.values())
+                   and stats["report"] and set(seconds) == {"sfm",
+                                                            "inference"},
+                   f"eval entry: rc {rc}, cmd1/3/5 {metrics} in [0, 1], "
+                   f"report written {stats['report']}, SfM and inference "
+                   f"run ({sorted(seconds)})")
+        self.check(rc_missing == 1,
+                   f"eval entry: --check against a missing data_dir "
+                   f"returns {rc_missing} (want 1)")
+
     def kernels_line(self):
         st = self.results.get("stem", {}).get(str((B, H, W, 1)), {})
         mt = self.results.get("match", {}).get(
             f"[{B},{K_PTS},256]x[{B},{SHAPE3D},256] random", {})
-        # launches of the main paths (pipeline, serving, detector)
+        # launches of the main paths (every phase's that drives one)
         launches = {k: sum(p.get(k, 0) for p in
                            self.results.get("launches", {}).values())
                     for k in ("stem", "match")}
@@ -3171,6 +3389,69 @@ def permute_noise(noise, slots):
     return type(noise)(*(x[..., slots] for x in noise))
 
 
+def pnp_profile_scene(b, n):
+    """scripts/profile_pnp.py's scene, seed 0: points uniform in ±0.1 seen
+    at z = 0.6 with f = 460 on 512², 35% of them inliers and the rest
+    uniform clutter → (pts2d, pts3d, mask, Ks, the true pose [3, 4])."""
+    rng = np.random.default_rng(0)
+    k3 = rng.uniform(-0.1, 0.1, (b, n, 3)).astype(np.float32)
+    Rt = np.concatenate([np.eye(3), [[0], [0], [0.6]]], axis=1)
+    cam = k3 @ Rt[:, :3].T + Rt[:, 3]
+    px = cam[..., :2] / cam[..., 2:] * 460.0 + 256.0
+    outl = rng.uniform(0, 512, (b, n, 2)).astype(np.float32)
+    is_in = rng.uniform(size=(b, n)) < 0.35
+    k2 = np.where(is_in[..., None], px, outl).astype(np.float32)
+    Ks = np.broadcast_to(np.array([[460., 0, 256], [0, 460., 256], [0, 0, 1]],
+                                  np.float32), (b, 3, 3)).copy()
+    return k2, k3, np.ones((b, n), bool), Ks, Rt
+
+
+def mkdirs(*parts):
+    path = os.path.join(*parts)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def write_eval_capture(data, rng, dev):
+    """17's capture in the dataset layout under ``data``: ring views of the
+    textured plane (phase 11a's kind), as 8-bit PNGs with their crop
+    intrinsics and ground-truth poses; the SfM sequence's files are
+    numbered 5k, which sfm_spp_spg_sample's down ratio of 5 keeps. →
+    (SuperPoint as phase 11a's, SuperGlue params planted on the SfM views'
+    descriptors as 11a's)."""
+    import cv2
+
+    from onepose_tpu_torch.models import convert, superpoint
+    from onepose_tpu_torch.sfm import extract
+    from onepose_tpu_torch.utils.synthetic import ring_views
+
+    K, poses, images = ring_views(rng, EVAL_VIEWS, hw=H,
+                                  focal=float(KMAT[0, 0]))
+    images = np.round(images * 255) / 255
+    held = np.arange(EVAL_VIEWS) % 3 == 2
+    obj = os.path.join(data, "onepose_datasets", "sample_data", EVAL_OBJECT)
+    for seq, sel, step in ((SFM_SEQ, ~held, 5), (EVAL_SEQ, held, 1)):
+        dirs = [mkdirs(obj, seq, d) for d in ("color", "intrin_ba",
+                                              "poses_ba")]
+        for k, i in enumerate(np.flatnonzero(sel)):
+            name = str(step * k)
+            cv2.imwrite(os.path.join(dirs[0], name + ".png"),
+                        (images[i] * 255).astype(np.uint8))
+            np.savetxt(os.path.join(dirs[1], name + ".txt"), K)
+            np.savetxt(os.path.join(dirs[2], name + ".txt"),
+                       np.vstack([poses[i], [0, 0, 0, 1]]))
+    sp_model = convert.superpoint_from_jax(
+        convert.init_superpoint_params(np.random.default_rng(0)))
+    sp_conf = {k: v for k, v in extract.CONFS["superpoint"]["conf"].items()
+               if k != "descriptor_dim"}
+    det = superpoint.extract(sp_model.to(dev), torch.from_numpy(
+        images[~held][:SFM_BATCH, ..., None].astype(np.float32)).to(dev),
+        sp_conf)
+    sg_params = convert.plant_superglue(convert.init_superglue_params(rng),
+                                        det, 0.0)
+    return sp_model.cpu(), sg_params
+
+
 def to_device(noise, device):
     """A NamedTuple of tensors (or of such tuples) moved to ``device``."""
     if isinstance(noise, torch.Tensor):
@@ -3408,7 +3689,9 @@ def main() -> int:
         ("12 training at full width", smoke.training),
         ("13 bf16 preset", smoke.bf16_preset),
         ("14 several cards", smoke.several_cards),
-        ("15 token-sharded model axis", smoke.token_axis)]
+        ("15 token-sharded model axis", smoke.token_axis),
+        ("16 PnP stage profile", smoke.pnp_stages),
+        ("17 real-assets eval entry", smoke.eval_entry)]
     chosen = None if args.phases is None else set(args.phases.split(","))
     if chosen is not None:
         chosen.add("1")     # the card's name and power limit

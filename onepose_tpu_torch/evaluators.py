@@ -1,6 +1,6 @@
 """Pose-metric evaluator for the port: 1/3/5 cm-degree recall, and the
-per-sequence report. The port's own copy of ``Evaluator`` and
-``record_eval_result`` from ``onepose_tpu/evaluators.py``."""
+per-sequence report, and the ADD / ADD-S metric. The port's own copy of
+``onepose_tpu/evaluators.py``."""
 from __future__ import annotations
 
 import os
@@ -46,6 +46,24 @@ class Evaluator:
                 print(f"{t} cm {t} degree metric: {val}")
         self.reset()
         return out
+
+
+def add_metric(pose_pred, pose_gt, model_points, symmetric: bool = False):
+    """ADD / ADD-S: the mean distance between the model points moved by the
+    predicted and by the GT pose. model_points [N, 3] in the object frame
+    (the SfM cloud or the box corners); ``symmetric`` takes each predicted
+    point's nearest GT point instead of its own (ADD-S)."""
+    pose_pred = np.asarray(pose_pred)[:3, :4]
+    pose_gt = np.asarray(pose_gt)[:3, :4]
+    pts = np.asarray(model_points)
+    p_pred = pts @ pose_pred[:3, :3].T + pose_pred[:3, 3]
+    p_gt = pts @ pose_gt[:3, :3].T + pose_gt[:3, 3]
+    if symmetric:
+        d = np.linalg.norm(
+            p_pred[:, None, :] - p_gt[None, :, :], axis=-1).min(axis=1)
+    else:
+        d = np.linalg.norm(p_pred - p_gt, axis=-1)
+    return float(d.mean())
 
 
 def record_eval_result(out_dir: str, obj_name: str, seq_name: str,

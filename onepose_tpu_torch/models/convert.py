@@ -230,6 +230,38 @@ def superglue_from_state_dict(sd: Mapping) -> SuperGlue:
     })
 
 
+def superglue_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """SuperGlue params in the JAX layout → the reference checkpoint's keys
+    (``superglue_outdoor.pth``'s), which :func:`superglue_from_state_dict`
+    and ``utils/model_io.load_superglue`` read back."""
+    sd = {}
+
+    def conv(name, lin):
+        sd[f"{name}.weight"] = _t(lin["w"]).T[:, :, None].contiguous()
+        sd[f"{name}.bias"] = _t(lin["b"])
+
+    def mlp(ref, layers):
+        """[Conv1d, BatchNorm1d, ReLU] * k + Conv1d, as nn.Sequential."""
+        for i, layer in enumerate(layers):
+            conv(f"{ref}.{3 * i}", layer["lin"])
+            if "bn" in layer:
+                bn = layer["bn"]
+                for key, name in (("weight", "gamma"), ("bias", "beta"),
+                                  ("running_mean", "mean"),
+                                  ("running_var", "var")):
+                    sd[f"{ref}.{3 * i + 1}.{key}"] = _t(bn[name])
+
+    mlp("kenc.encoder", params["kenc"])
+    for i, p in enumerate(params["gnn"]):
+        for j, name in enumerate(("proj_q", "proj_k", "proj_v")):
+            conv(f"gnn.layers.{i}.attn.proj.{j}", p[name])
+        conv(f"gnn.layers.{i}.attn.merge", p["merge"])
+        mlp(f"gnn.layers.{i}.mlp", p["mlp"])
+    conv("final_proj", params["final_proj"])
+    sd["bin_score"] = _t(params["bin_score"]).reshape(())
+    return sd
+
+
 # ---------------------------------------------------------------------------
 # Seeded init in the JAX layout, numpy only
 # ---------------------------------------------------------------------------

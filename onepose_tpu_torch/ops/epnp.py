@@ -613,12 +613,17 @@ def _gather_points(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[b, idx]
 
 
+# the stages ``ransac_pnp(profile_prefix=...)`` can stop after, in order
+PROFILE_PREFIXES = ("solve", "score", "lo", "refit", "full")
+
+
 def ransac_pnp(pts2d: torch.Tensor, pts3d: torch.Tensor, mask: torch.Tensor,
                K: torch.Tensor, reproj_threshold: float = 5.0,
                num_hypotheses: int = 512, sample_size: int = 6,
                refine_iters: int = 5, lo_hypotheses: int = 64,
                lo_iters: int = 2, noise: Optional[RansacNoise] = None,
-               generator: Optional[torch.Generator] = None) -> PnPResult:
+               generator: Optional[torch.Generator] = None,
+               profile_prefix: Optional[str] = None) -> PnPResult:
     """LO-RANSAC PnP for a batch of frames.
 
     pts2d [B, N, 2] pixels; pts3d [B, N, 3]; mask [B, N] valid
@@ -632,7 +637,19 @@ def ransac_pnp(pts2d: torch.Tensor, pts3d: torch.Tensor, mask: torch.Tensor,
 
     ``noise`` injects the sampling noise; without it the noise is drawn
     from ``generator`` on the points' device.
+
+    ``profile_prefix`` (measurement only; None or "full" runs the whole
+    solve) stops after a named stage of :data:`PROFILE_PREFIXES` and
+    returns the best pose so far: "solve" the first round-1 hypothesis,
+    "score" the top-ranked one, "lo" the last candidate (the LO winner,
+    or the 4th ranked without an LO round), "refit" the refit winner
+    before the polish; with the inliers and count of that pose, ungated,
+    and ``success`` True. ``chip_smoke.py`` times the cumulative prefixes.
+    No product path sets it.
     """
+    if profile_prefix not in PROFILE_PREFIXES + (None,):
+        raise ValueError(f"profile_prefix {profile_prefix!r} is not one "
+                         f"of {PROFILE_PREFIXES}")
     B, n = mask.shape
     f32 = torch.float32
     pts2d = pts2d.to(f32)
@@ -694,7 +711,18 @@ def ransac_pnp(pts2d: torch.Tensor, pts3d: torch.Tensor, mask: torch.Tensor,
                        _gather_points(maskf, idx6))
     poses = torch.cat([poses_p3p, poses_pl, poses_p6], 1)
 
+    def prefix_result(pose):
+        good, count, _ = score(pose[:, None])
+        return PnPResult(pose, good[:, 0], count[:, 0].to(torch.int32),
+                         torch.ones(B, dtype=torch.bool, device=pose.device))
+
+    if profile_prefix == "solve":
+        return prefix_result(poses[:, 0])
+
     cands = _take(poses, _top_k_indices(score_many(poses), 4))  # [B, 4, 3, 4]
+
+    if profile_prefix == "score":
+        return prefix_result(cands[:, 0])
 
     # --- round 2 (LO): non-minimal resampling from the consensus set ---
     if lo_hypotheses > 0:
@@ -705,6 +733,9 @@ def ransac_pnp(pts2d: torch.Tensor, pts3d: torch.Tensor, mask: torch.Tensor,
                            _gather_points(maskf, idx_lo))
         best_lo = _take(poses_lo, score_many(poses_lo).argmax(-1, keepdim=True))
         cands = torch.cat([cands, best_lo], 1)
+
+    if profile_prefix == "lo":
+        return prefix_result(cands[:, -1])
 
     # --- iterated refit chains on every candidate + one GN step each ---
     C = cands.shape[1]
@@ -723,6 +754,9 @@ def ransac_pnp(pts2d: torch.Tensor, pts3d: torch.Tensor, mask: torch.Tensor,
         better = msac_for(pose_r) >= msac_for(pose)
         pose = torch.where(better[..., None, None], pose_r, pose)
     pose_best = _take(pose, score_many(pose).argmax(-1, keepdim=True))
+
+    if profile_prefix == "refit":
+        return prefix_result(pose_best[:, 0])
 
     # full-strength GN polish on the winner's inlier set, kept only if it
     # does not lose consensus

@@ -1,5 +1,5 @@
-"""Dataset directory layout, the parts the port's inference and demo read
-(its own copy of those functions of ``onepose_tpu/utils/path_utils.py``).
+"""Dataset directory layout (the port's own copy of
+``onepose_tpu/utils/path_utils.py``).
 
 data_root/
     box3d_corners.txt
@@ -13,7 +13,7 @@ data_root/
         intrin_det/     detector-crop intrinsics
 
 sfm_model_dir/outputs_<detection>_<matching>/anno/
-    anno_3d_average.npz  anno_3d_collect.npz  idxs.npy
+    anno_3d_average.npz  anno_3d_collect.npz  idxs.npy  anno_2d.json
 """
 from __future__ import annotations
 
@@ -25,6 +25,12 @@ def get_gt_pose_path_by_color(color_path: str, det_type: str = "GT_box") -> str:
     return color_path.replace(src, "/poses_ba/").replace(".png", ".txt")
 
 
+def get_img_full_path_by_color(color_path: str,
+                               det_type: str = "GT_box") -> str:
+    src = {"GT_box": "/color/", "feature_matching": "/color_det/"}[det_type]
+    return color_path.replace(src, "/color_full/")
+
+
 def get_intrin_path_by_color(color_path: str,
                              det_type: str = "GT_box") -> str:
     if det_type == "GT_box":
@@ -34,6 +40,14 @@ def get_intrin_path_by_color(color_path: str,
         return color_path.replace("/color_det/", "/intrin_det/").replace(
             ".png", ".txt")
     raise NotImplementedError(det_type)
+
+
+def get_intrin_dir(seq_root: str) -> str:
+    return osp.join(seq_root, "intrin_ba")
+
+
+def get_gt_pose_dir(seq_root: str) -> str:
+    return osp.join(seq_root, "poses_ba")
 
 
 def get_intrin_full_path(seq_root: str) -> str:

@@ -1,12 +1,13 @@
 """Visualization for the port: the demo's frame rendering (``reproj``,
-``draw_3d_box``, ``save_demo_image``, ``make_video``), training's match
-figures (``draw_matches``) and the scene export,
-one self-contained HTML file with an interactive 3D view of an object's
-points and the estimated cameras.
+``draw_3d_box``, ``draw_2d_box``, ``save_demo_image``, ``make_video``),
+training's match figures (``draw_matches``), and the scene exports: PLY +
+JSON (``export_scene``), one self-contained HTML file with an interactive
+3D view of an object's points and the estimated cameras
+(``export_scene_html``), and the optional per-frame wis3d dump
+(``dump_wis3d``).
 
-The port's own copies of those functions (and the page template) of
-``onepose_tpu/utils/vis_utils.py``; cv2 is imported inside the functions
-that draw or write images.
+The port's own copy of ``onepose_tpu/utils/vis_utils.py``; cv2, PIL and
+wis3d are imported inside the functions that use them.
 """
 from __future__ import annotations
 
@@ -43,6 +44,16 @@ def draw_3d_box(image: np.ndarray, corners_2d: np.ndarray,
     c = np.asarray(corners_2d).astype(int)
     for a, b in BOX_EDGES:
         cv2.line(image, tuple(c[a]), tuple(c[b]), color, thickness)
+    return image
+
+
+def draw_2d_box(image: np.ndarray, bbox, color=(0, 255, 0),
+                thickness: int = 2) -> np.ndarray:
+    """Draw the box (x0, y0, x1, y1) on a BGR image (in place)."""
+    import cv2
+
+    x0, y0, x1, y1 = [int(v) for v in bbox]
+    cv2.rectangle(image, (x0, y0), (x1, y1), color, thickness)
     return image
 
 
@@ -114,6 +125,48 @@ def make_video(image_dir: str, output_path: str, fps: int = 24):
         writer.write(cv2.imread(p))
     writer.release()
     return output_path
+
+
+def export_scene(out_dir: str, points3d: Optional[np.ndarray] = None,
+                 poses: Optional[Sequence[np.ndarray]] = None,
+                 K: Optional[np.ndarray] = None,
+                 box3d_corners: Optional[np.ndarray] = None,
+                 name: str = "scene"):
+    """Export a reconstruction (point cloud, cameras, 3D box) as an ASCII
+    PLY of the points and a JSON manifest, for external viewers. Returns
+    the manifest's path."""
+    os.makedirs(out_dir, exist_ok=True)
+    manifest = {"name": name}
+    if points3d is not None:
+        ply_path = osp.join(out_dir, f"{name}_points.ply")
+        pts = np.asarray(points3d)
+        with open(ply_path, "w") as f:
+            f.write("ply\nformat ascii 1.0\n")
+            f.write(f"element vertex {len(pts)}\n")
+            f.write("property float x\nproperty float y\n"
+                    "property float z\nend_header\n")
+            for x, y, z in pts:
+                f.write(f"{x} {y} {z}\n")
+        manifest["points"] = ply_path
+    if poses is not None:
+        cams = []
+        for pose in poses:
+            pose = np.asarray(pose)
+            R, t = pose[:3, :3], pose[:3, 3]
+            cams.append({
+                "R": R.tolist(), "t": t.tolist(),
+                "center": (-R.T @ t).tolist(),
+            })
+        manifest["cameras"] = cams
+    if K is not None:
+        manifest["K"] = np.asarray(K).tolist()
+    if box3d_corners is not None:
+        manifest["box3d_corners"] = np.asarray(box3d_corners).tolist()
+    json_path = osp.join(out_dir, f"{name}.json")
+    with open(json_path, "w") as f:
+        json.dump(manifest, f, indent=1)
+    return json_path
+
 
 _SCENE_HTML = """<!doctype html><html><head><meta charset="utf-8">
 <title>{title}</title><style>
@@ -223,3 +276,65 @@ def export_scene_html(out_path: str,
     with open(out_path, "w") as f:
         f.write(html)
     return out_path
+
+
+def dump_wis3d(idx: int, vis_dir: str, seq_name: str,
+               image0, image1, image_full,
+               kpts2d: np.ndarray, kpts2d_reproj: np.ndarray,
+               confidence: np.ndarray,
+               inliers: Optional[np.ndarray] = None):
+    """One wis3d scene for frame ``idx``: the query↔reprojected keypoint
+    correspondences (confidence, reprojection distance, inlier flags) and
+    the rendered full-resolution result, when the optional wis3d package
+    is importable; a printed skip otherwise.
+
+    ``image0``/``image1``: grayscale or RGB arrays (or PIL images);
+    ``image_full``: a BGR uint8 render (cv2's order, as the demo writes);
+    ``inliers``: indices into kpts2d, or None. Returns the Wis3D handle,
+    or None when wis3d is absent.
+    """
+    try:
+        from wis3d import Wis3D
+    except ImportError:
+        print("[vis] wis3d not available; skipping interactive dump")
+        return None
+
+    kpts2d = np.asarray(kpts2d, np.float64).reshape(-1, 2)
+    kpts2d_reproj = np.asarray(kpts2d_reproj, np.float64).reshape(-1, 2)
+    confidence = np.asarray(confidence, np.float64).reshape(-1)
+    reproj_distance = np.linalg.norm(kpts2d_reproj - kpts2d, axis=1)
+    inlier_flags = np.zeros((kpts2d.shape[0], 1), dtype=bool)
+    if inliers is not None:
+        inlier_flags[np.asarray(inliers, np.int64)] = True
+    n_inliers = int(inlier_flags.sum())
+
+    def as_pil(img, bgr=False):
+        try:
+            from PIL import Image
+        except ImportError:
+            return img
+        arr = np.asarray(img)
+        if arr.dtype != np.uint8:
+            arr = np.clip(arr * 255 if arr.max() <= 1.0 + 1e-6 else arr,
+                          0, 255).astype(np.uint8)
+        if bgr and arr.ndim == 3:
+            arr = arr[..., ::-1]
+        return Image.fromarray(arr)
+
+    img0 = as_pil(image0)
+    img1 = as_pil(image1)
+    w, h = getattr(img0, "size", (np.asarray(image0).shape[1],
+                                  np.asarray(image0).shape[0]))
+
+    vis = Wis3D(vis_dir, seq_name)
+    vis.set_scene_id(idx)
+    vis.add_keypoint_correspondences(
+        img0, img1, kpts2d, kpts2d_reproj,
+        metrics={"mconf": confidence.tolist(),
+                 "reproj_distance": reproj_distance.tolist()},
+        booleans={"inliers": inlier_flags.tolist()},
+        meta={"num_inliers": n_inliers, "width": w, "height": h},
+        name="matches")
+    if image_full is not None:
+        vis.add_image(as_pil(image_full, bgr=True), name="results")
+    return vis

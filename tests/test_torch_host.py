@@ -732,3 +732,109 @@ def test_block_and_time_and_trace(tmp_path):
     with tprof.trace(str(tmp_path / "off"), enabled=False) as prof:
         pass
     assert prof is None and not (tmp_path / "off").exists()
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_add_metric_equal(symmetric):
+    rng = np.random.default_rng(11)
+    pts = rng.uniform(-0.1, 0.1, (200, 3))
+    for gt in _poses(rng, 3):
+        pred = np.concatenate(
+            [jgeo.rodrigues(rng.normal(size=3) * 0.05) @ gt[:, :3],
+             gt[:, 3:] + rng.normal(size=(3, 1)) * 0.01], 1)
+        got = teval.add_metric(pred, gt, pts, symmetric=symmetric)
+        assert got == jeval.add_metric(pred, gt, pts, symmetric=symmetric)
+        assert got > 0
+        assert teval.add_metric(gt, gt, pts, symmetric=symmetric) < 1e-12
+
+
+def test_path_getters_equal():
+    for mode, p in (("GT_box", "/d/obj/seq-1/color/12.png"),
+                    ("feature_matching", "/d/obj/seq-1/color_det/3.png")):
+        assert (tpath.get_img_full_path_by_color(p, mode)
+                == jpath.get_img_full_path_by_color(p, mode))
+    for seq in ("/d/obj/seq-1", "rel/seq-2/"):
+        assert tpath.get_intrin_dir(seq) == jpath.get_intrin_dir(seq)
+        assert tpath.get_gt_pose_dir(seq) == jpath.get_gt_pose_dir(seq)
+
+
+def test_export_scene_equal(tmp_path):
+    """The PLY and the JSON manifest byte for byte, written in turn to
+    the same directory (the manifest names the PLY's path)."""
+    rng = np.random.default_rng(12)
+    kw = dict(points3d=rng.normal(size=(50, 3)), poses=_poses(rng, 3),
+              K=np.array([[500.0, 0, 256], [0, 500.0, 256], [0, 0, 1]]),
+              box3d_corners=rng.normal(size=(8, 3)), name="obj")
+    files = []
+    for mod in (jvis, tvis):
+        path = mod.export_scene(str(tmp_path), **kw)
+        files.append((open(path, "rb").read(),
+                      open(tmp_path / "obj_points.ply", "rb").read()))
+    assert files[0] == files[1]
+    assert tvis.export_scene(str(tmp_path / "e"), name="e") == \
+        str(tmp_path / "e" / "e.json")
+
+
+def test_draw_2d_box_equal():
+    pytest.importorskip("cv2")
+    rng = np.random.default_rng(13)
+    img = rng.integers(0, 256, (80, 90, 3), np.uint8)
+    for box, kw in (([5, 5, 60, 60], {}),
+                    ([10.7, 3.2, 88.9, 70.1], dict(color=(255, 0, 0),
+                                                   thickness=3))):
+        got = tvis.draw_2d_box(img.copy(), box, **kw)
+        np.testing.assert_array_equal(got,
+                                      jvis.draw_2d_box(img.copy(), box, **kw))
+        assert (got != img).any()
+
+
+def test_dump_wis3d_equal(monkeypatch, capsys):
+    """Absent: None and the same printed skip. Present (a fake module):
+    the same calls with the same arguments."""
+    import sys
+    import types
+
+    kpts = np.array([[10.0, 10], [20.0, 30], [40.0, 5]])
+    reproj = kpts + np.array([[0.5, 0], [0, 0.5], [3.0, 0]])
+    conf = np.array([0.9, 0.8, 0.2])
+    img = np.zeros((50, 60), np.uint8)
+    full = np.zeros((50, 60, 3), np.uint8)
+    args = ("vis", "seq", img, img, full, kpts, reproj, conf)
+
+    monkeypatch.setitem(sys.modules, "wis3d", None)
+    printed = []
+    for mod in (tvis, jvis):
+        assert mod.dump_wis3d(0, *args, inliers=[0, 1]) is None
+        printed.append(capsys.readouterr().out)
+    assert printed[0] == printed[1] != ""
+
+    def fake_module(log):
+        class FakeWis3D:
+            def __init__(self, vis_dir, seq_name):
+                log.append(("init", vis_dir, seq_name))
+
+            def set_scene_id(self, idx):
+                log.append(("scene_id", idx))
+
+            def add_keypoint_correspondences(self, img0, img1, k0, k1,
+                                             metrics=None, booleans=None,
+                                             meta=None, name=None):
+                log.append(("corr", np.asarray(img0).tolist(),
+                            np.asarray(k0).tolist(), np.asarray(k1).tolist(),
+                            metrics, booleans, meta, name))
+
+            def add_image(self, image, name=None):
+                log.append(("image", np.asarray(image).tolist(), name))
+
+        fake = types.ModuleType("wis3d")
+        fake.Wis3D = FakeWis3D
+        return fake
+
+    logs = []
+    for mod in (tvis, jvis):
+        log = []
+        monkeypatch.setitem(sys.modules, "wis3d", fake_module(log))
+        assert mod.dump_wis3d(3, *args, inliers=[0, 1]) is not None
+        logs.append(log)
+    assert logs[0] == logs[1]
+    assert [e[0] for e in logs[0]] == ["init", "scene_id", "corr", "image"]

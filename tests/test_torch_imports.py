@@ -50,6 +50,12 @@ def test_port_never_imports_jax():
 ROOT_SCRIPTS = sorted(os.path.basename(f)[:-3]
                       for f in glob.glob(os.path.join(REPO, "*.py"))
                       if os.path.basename(f) != "chip_smoke.py")
+# and the JAX side's scripts (scripts/eval_real.py, scripts/profile_pnp.py,
+# ...): those whose source names the JAX package
+JAX_SCRIPTS = sorted(
+    os.path.basename(f)[:-3]
+    for f in glob.glob(os.path.join(REPO, "scripts", "*.py"))
+    if "onepose_tpu" in open(f).read().replace("onepose_tpu_torch", ""))
 
 
 def _jax_package_imports(path):
@@ -57,7 +63,7 @@ def _jax_package_imports(path):
     or a root script of the repository in the Python file at ``path``."""
     def hit(name):
         return any(name == m or name.startswith(m + ".")
-                   for m in ("onepose_tpu", *ROOT_SCRIPTS))
+                   for m in ("onepose_tpu", *ROOT_SCRIPTS, *JAX_SCRIPTS))
 
     found = []
     for node in ast.walk(ast.parse(open(path).read(), path)):
@@ -83,7 +89,8 @@ def test_port_never_imports_the_jax_package():
             "sfm/triangulate.py", "sfm/global_ba.py", "sfm/postprocess.py",
             "sfm/runner.py", "runtime/native.py", "utils/colmap_db.py",
             "datasets/merge.py", "run.py", "parse_scanned_data.py",
-            "video2img.py", "utils/hdf5.py", *TRAINING_MODULES} <= rel
+            "video2img.py", "utils/hdf5.py", "eval_real.py",
+            *TRAINING_MODULES} <= rel
     files += [os.path.join(REPO, "chip_smoke.py"),
               os.path.join(REPO, "tests", "test_torch_cuda.py")]
     bad = {os.path.relpath(f, REPO): _jax_package_imports(f) for f in files}
@@ -139,6 +146,20 @@ def test_import_scan_sees_jax_package_imports(tmp_path):
         (1, "onepose_tpu"), (3, "onepose_tpu.utils"),
         (6, "onepose_tpu.config"), (8, "feature_matching_object_detector"),
         (10, "inference")]
+
+
+def test_import_scan_sees_the_jax_scripts(tmp_path):
+    """The port's eval entry shares its name with the JAX side's
+    scripts/eval_real.py: the scan tells the two apart."""
+    assert {"eval_real", "profile_pnp"} <= set(JAX_SCRIPTS)
+    assert "time_torch_stem" not in JAX_SCRIPTS
+    src = tmp_path / "m.py"
+    src.write_text("import eval_real\n"
+                   "from onepose_tpu_torch import eval_real\n"
+                   "import onepose_tpu_torch.eval_real\n"
+                   "def f():\n    from profile_pnp import main\n")
+    assert _jax_package_imports(str(src)) == [(1, "eval_real"),
+                                              (5, "profile_pnp")]
 
 
 def _tiny_pipeline_args(rng):

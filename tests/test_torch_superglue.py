@@ -227,6 +227,24 @@ def test_reference_checkpoint_keys_load(tmp_path):
         model_io.load_superglue(str(tmp_path / "orbax_dir"))
 
 
+def test_state_dict_writer_is_the_reference_layout(tmp_path):
+    """``convert.superglue_to_state_dict`` writes superglue_outdoor.pth's
+    keys and Conv1d layout (the batch counters aside), which both
+    packages' loaders read back to the same weights."""
+    params = convert.init_superglue_params(np.random.default_rng(8), CFG)
+    sd = convert.superglue_to_state_dict(params)
+    ref = {k: v for k, v in _reference_state_dict(params).items()
+           if not k.endswith("num_batches_tracked")}
+    assert sd.keys() == ref.keys()
+    for k in ref:
+        torch.testing.assert_close(sd[k], ref[k], rtol=0, atol=0)
+    path = str(tmp_path / "superglue_outdoor.pth")
+    torch.save(sd, path)
+    loaded = model_io.load_superglue(path).state_dict()
+    for k, v in convert.superglue_from_jax(params).state_dict().items():
+        torch.testing.assert_close(loaded[k], v, rtol=0, atol=0)
+
+
 def test_numpy_init_matches_jax_layout():
     ours = convert.init_superglue_params(np.random.default_rng(0))
     ref = jsg.init_params(jax.random.PRNGKey(0))
