@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``onepose_tpu_torch/csrc`` at
 first use (into ``build/onepose_tpu_torch/``, counted in this run's time)
-and runs seventeen phases; weights and inputs come from fixed seeds.
+and runs nineteen phases; weights and inputs come from fixed seeds.
 
   1. card name and power limit (nvidia-smi);
   2. kernel build time, ptxas register use, and the count of tensor-core
@@ -158,16 +158,36 @@ and runs seventeen phases; weights and inputs come from fixed seeds.
      *_sample.txt), the weights written as the reference's checkpoint
      files (SuperPoint and GATsSPG at full width, random from seeds;
      SuperGlue planted as in 11a), SfM not skipped (at most 2000 points,
-     test_sample's shape3d): rc 0, cmd1/3/5 in [0, 1] in the baseline
+     test_sample's shape3d, so the DB of a larger object is padded to a
+     multiple of 8 above its points): rc 0, cmd1/3/5 in [0, 1] in the baseline
      appended under ``--out``, the per-sequence report written, the stem
      kernel launched by SfM and the match kernel by inference (the bf16
      preset skips the stem there), ``--check`` on a missing data_dir
-     returning 1; each stage's seconds.
+     returning 1; each stage's seconds;
+ 18. the measurement entries, in this process through each entry's
+     ``run``: ``onepose_tpu_torch.bench`` at its protocol in full (the bf16
+     preset: the match kernel only; stages summing to the total within 5%,
+     the total within 2x of phase 7's, mfu finite), ``profile_stages`` in
+     full (its nine rows), ``bench_serving`` at 81 objects (catalog about
+     1,494 MB) and ``--latency`` at 8 objects over 48 requests a point,
+     ``bench_tracker`` at 12 frames with ``--breakdown`` (errors within
+     phase 10a's bounds), ``bench_train`` at its defaults, each line's
+     keys those of the JAX-side file's and every number finite; then
+     ``demo_pipeline``'s chain on a raw capture of the textured plane (40
+     annotate views, 8 test frames, mp4v video): parse, SfM (the stem
+     kernel), the demo (the match kernel), its DB and video written. The
+     runs cut from the defaults are listed under ``reduced``;
+ 19. rows batched together: phase 7's models, DB and frames, the first 4
+     frames extracted and matched at batch 4 and inside batch 8, every
+     aten op's (and kernel's) outputs fingerprinted: the first op whose
+     4-row outputs differ from the 8-row call's first half, and the gap
+     between the final outputs; the 8-row call repeating its bits.
 
 ``--phases 2,11a,12,14,15`` runs a subset (phase 1 always; 14 needs 11a
 and 12) and prints neither the kernels line nor the final line. Each main
 path (phases 7, 8, 9, 10b, 11a, 12d, 14's (a)-(c), 15's (a)-(b) on
-every rank, and 17) is driven once with the launch counts set to 0 just
+every rank, 17, and 18's bench, profile_stages, serving and demo chain)
+is driven once with the launch counts set to 0 just
 before it and read just after; the kernels line sums those counts, every
 rank's included. Every
 phase's launches, comparisons included, are in the JSON. Detailed
@@ -182,6 +202,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import glob
 import json
 import os
 import subprocess
@@ -191,6 +212,7 @@ import traceback
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 STEM_TOL = 1e-4        # relative to max(|ref|, 1): the fused-stem gate's
 # NVIDIA H100 SXM peaks (data sheet, dense): TF32 tensor cores, fp32 FMA on
@@ -248,6 +270,33 @@ EVAL_OBJECT, SFM_SEQ, EVAL_SEQ = ("0501-matchafranzzi-box", "matchafranzzi-1",
 EVAL_VIEWS = 48
 EVAL_WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                          "chip_smoke_eval")
+# phase 18: the entries' files (the demo's capture, bench_train's dataset),
+# the demo capture's object, its annotate views and test frames, and the
+# key sets of the entries' JSON lines (tests/test_torch_bench_entries.py
+# holds them to the JAX-side files')
+ENTRIES_WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "chip_smoke_entries")
+DEMO_OBJECT, DEMO_VIEWS = "0600-plane-box", (40, 8)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "iqr", "blocks",
+              "stages", "mfu", "tflops_per_sec", "roofline", "protocol",
+              "stem_dtype", "stem", "compute_dtype", "loadavg_1min",
+              "host_idle", "device"}
+PROFILE_ROWS = ["sp stem (conv1a+1b+pool)", "sp dense_heads fp32",
+                "sp dense_heads bf16", "sp extract (dense+nms+select)",
+                "gats matcher fp32", "gats matcher bf16",
+                "pnp 512 hypotheses", "pnp 256 hypotheses", "FULL pipeline"]
+SERVING_KEYS = {"serve_ms_per_batch8", "req_per_s", "catalog_mb",
+                "n_objects", "uniform", "device"}
+SERVING_LATENCY_KEYS = {"metric", "n_objects", "batch_size",
+                        "assembly_timeout_ms", "sync_batch_wall_ms",
+                        "capacity_req_per_s", "points", "device"}
+TRACKER_KEYS = {"track_ms_median", "track_ms_p90", "frames",
+                "r_err_deg_max", "t_err_cm_max", "breakdown", "device"}
+TRAIN_KEYS = {"light+host-leaf-sampling", "light+device-leaf-sampling",
+              "+ staged uploads", "step-only ceiling", "device"}
+# phase 19: the most match slots of the first 4 frames (4·K_PTS) that may
+# differ between batch 4 and batch 8, four times the 20 measured on an H100
+BATCH_ROWS_MAX_SLOTS = 80
 # phase 13: the bf16 gate's seeds, frames a seed, their size and keypoints,
 # and the DB points each frame plants
 GATE_SEEDS, GATE_FRAMES, GATE_HW, GATE_KPTS, GATE_POINTS = 4, 4, 256, 512, 96
@@ -526,6 +575,7 @@ class Smoke:
         from onepose_tpu_torch import pipeline
         from onepose_tpu_torch.ops import epnp
         from onepose_tpu_torch.utils import geometry as geo
+        from onepose_tpu_torch.utils.synthetic import random_db
 
         rng = np.random.default_rng(2)
         sp_model, gats_model = random_models(rng)
@@ -590,6 +640,7 @@ class Smoke:
     # -- 7 ----------------------------------------------------------------
     def protocol(self):
         from onepose_tpu_torch import pipeline
+        from onepose_tpu_torch.utils.synthetic import random_db
 
         rng = np.random.default_rng(0)
         sp_model, gats_model = random_models(rng)
@@ -654,6 +705,7 @@ class Smoke:
         from onepose_tpu_torch.models import gats_spg, superpoint
         from onepose_tpu_torch.ops import epnp, match
         from onepose_tpu_torch.utils import geometry as geo
+        from onepose_tpu_torch.utils.synthetic import random_db
 
         rng = np.random.default_rng(8)
         sp_model, gats_model = random_models(rng)
@@ -1126,7 +1178,8 @@ class Smoke:
         from onepose_tpu_torch.ops import epnp
         from onepose_tpu_torch.sfm.extract import CONFS
         from onepose_tpu_torch.utils import geometry as geo
-        from onepose_tpu_torch.utils.synthetic import plant_on_plane
+        from onepose_tpu_torch.utils.synthetic import (plant_on_plane,
+                                                       random_db)
 
         K, _, frames = self.plane()
         K32 = K.astype(np.float32)
@@ -2635,23 +2688,15 @@ class Smoke:
 
         from onepose_tpu_torch import eval_real
         from onepose_tpu_torch.models import convert
-        from onepose_tpu_torch.utils import model_io
+        from onepose_tpu_torch.utils.synthetic import write_checkpoints
 
         stats = self.results["eval_entry"] = {"card": self.smi}
         shutil.rmtree(EVAL_WORK, ignore_errors=True)
         data = os.path.join(EVAL_WORK, "data")
         rng = np.random.default_rng(17)
         sp_model, sg_params = write_eval_capture(data, rng, self.dev)
-        torch.save(sp_model.state_dict(), os.path.join(
-            mkdirs(data, "models", "extractors", "SuperPoint"),
-            "superpoint_v1.pth"))
-        torch.save(convert.superglue_to_state_dict(sg_params), os.path.join(
-            mkdirs(data, "models", "matchers", "SuperGlue"),
-            "superglue_outdoor.pth"))
-        model_io.save_gats_spg(
-            convert.gats_spg_from_jax(convert.init_gats_spg_params(rng)),
-            os.path.join(data, "models", "checkpoints", "onepose",
-                         "GATsSPG.ckpt"))
+        write_checkpoints(data, sp_model, sg_params, convert.gats_spg_from_jax(
+            convert.init_gats_spg_params(rng)))
 
         # the baseline and the reports go to --out, each run's own
         baseline = os.path.join(self.out_dir, "BASELINE_eval_entry.md")
@@ -2659,11 +2704,11 @@ class Smoke:
         shutil.rmtree(eval_dir, ignore_errors=True)
         if os.path.exists(baseline):
             os.remove(baseline)
-        # SfM keeps at most test_sample's shape3d points: the DB is
-        # padded to shape3d, and build_object_db refuses a larger object
-        # (sfm_spp_spg_sample keeps up to 2500; this capture gives 2362)
+        # SfM keeps up to sfm_spp_spg_sample's 2500 points (this capture
+        # gives 2362), more than test_sample's shape3d of 2000: the entry
+        # pads such an object's DB to a multiple of 8 above its count
         overrides = [f"data_dir={data}", f"output.eval_dir={eval_dir}",
-                     f"dataset.max_num_kp3d={SHAPE3D}", "print_config=False"]
+                     "print_config=False"]
         cwd = os.getcwd()
         try:
             rc = self.path_launches("eval_entry", lambda: eval_real.main(
@@ -2684,8 +2729,11 @@ class Smoke:
         seconds = {k: float(v) for k, v in (
             t.split()[:2] for t in times.split(", "))}
         report = os.path.join(eval_dir, f"{EVAL_OBJECT}{EVAL_SEQ}.txt")
+        idxs = glob.glob(os.path.join(data, "sfm_model", "*", "outputs_*",
+                                      "anno", "idxs.npy"))
         stats.update(rc=rc, rc_check_missing=rc_missing, metrics=metrics,
                      stage_s=seconds, report=os.path.exists(report),
+                     db_points=[len(np.load(f)) for f in idxs],
                      launches=self.results["launches"]["eval_entry"])
         log(f"   eval entry: rc {rc}, {metrics}, stages " + ", ".join(
             f"{k} {v:.1f} s" for k, v in seconds.items())
@@ -2700,6 +2748,227 @@ class Smoke:
         self.check(rc_missing == 1,
                    f"eval entry: --check against a missing data_dir "
                    f"returns {rc_missing} (want 1)")
+        self.check(len(idxs) == 1 and stats["db_points"][0] > SHAPE3D,
+                   f"eval entry: the object's {stats['db_points']} points "
+                   f"evaluated uncapped, more than shape3d {SHAPE3D}")
+
+    # -- 18 ---------------------------------------------------------------
+    def entries(self):
+        """18: the measurement entries in this process on the card, each
+        through its ``run`` as its ``main`` calls it: ``bench`` at its
+        protocol in full (the gate off, the load it read recorded),
+        ``profile_stages`` in full, ``bench_serving`` at 81 objects then
+        ``--latency`` at 8 objects over 48 requests a point,
+        ``bench_tracker`` at 12 frames with ``--breakdown``,
+        ``bench_train`` at its defaults, and the demo chain on a short
+        raw capture. Launch counts zeroed around each driven path."""
+        import shutil
+
+        from onepose_tpu_torch import (bench, bench_serving, bench_tracker,
+                                       bench_train, profile_stages)
+
+        stats = self.results["entries"] = {"card": self.smi, "reduced": {
+            "bench_serving --latency": "8 objects (default 81), 48 requests "
+                                       "a point (default 240)",
+            "bench_tracker": "12 frames (default 24), --breakdown",
+            "demo_pipeline": f"a synthetic capture: {DEMO_VIEWS[0]} "
+                             f"annotate views, {DEMO_VIEWS[1]} test frames",
+        }}
+        shutil.rmtree(ENTRIES_WORK, ignore_errors=True)
+
+        # bench: the protocol, the bf16 preset (the match kernel only)
+        load1 = bench.host_load()
+        out = stats["bench"] = self.path_launches(
+            "entry_bench", lambda: bench.run(load1=load1),
+            kernels=("match",))
+        log("   bench: " + json.dumps(out))
+        st = out["stages"]
+        parts = st["extract_ms"] + st["match_ms"] + st["pnp_ms"]
+        ref_ms = self.results.get("protocol", {}).get("total_ms")
+        self.check(set(out) == BENCH_KEYS and not nonfinite(out)
+                   and out["mfu"] is not None
+                   and self.results["launches"]["entry_bench"]["stem"] == 0,
+                   f"bench: keys, finite values, mfu {out['mfu']}, no stem "
+                   "launch in the preset")
+        self.check(abs(parts - st["total_ms"]) <= 0.05 * st["total_ms"],
+                   f"bench: stages sum {parts:.2f} ms within 5% of total "
+                   f"{st['total_ms']:.2f}")
+        self.check(ref_ms is None or st["total_ms"] <= 2 * ref_ms,
+                   f"bench: total {st['total_ms']:.2f} ms within 2x of phase "
+                   f"7's {ref_ms}  [{self.smi}]")
+
+        out = stats["profile_stages"] = self.path_launches(
+            "entry_profile_stages",
+            lambda: profile_stages.run(log=lambda m: log("   " + m)))
+        self.check(list(out["rows"]) == PROFILE_ROWS
+                   and not nonfinite(out),
+                   f"profile_stages: {len(out['rows'])} rows, finite  "
+                   f"[{self.smi}]")
+
+        for name, argv, kw in (
+                ("bench_serving", [], {}),
+                ("bench_serving_latency", [
+                    "--n-objects", "8", "--latency", "--latency-requests",
+                    "48"], {})):
+            args = bench_serving.parser().parse_args(argv)
+            out = stats[name] = self.path_launches(
+                f"entry_{name}", lambda: bench_serving.run(
+                    args, log=lambda m: log("   " + m), **kw))
+            log(f"   {name}: " + json.dumps(out))
+            keys = SERVING_LATENCY_KEYS if args.latency else SERVING_KEYS
+            self.check(set(out) == keys and not nonfinite(out),
+                       f"{name}: keys, finite values  [{self.smi}]")
+        catalog = stats["bench_serving"]["catalog_mb"]
+        self.check(abs(catalog - 1494) <= 2, f"bench_serving: catalog "
+                   f"{catalog} MB at 81 objects (about 1,494)")
+
+        args = bench_tracker.parser().parse_args(["--frames", "12",
+                                                  "--breakdown"])
+        out = stats["bench_tracker"] = bench_tracker.run(
+            args, log=lambda m: log("   " + m))
+        log("   bench_tracker: " + json.dumps(out))
+        self.check(set(out) == TRACKER_KEYS and not nonfinite(out)
+                   and out["r_err_deg_max"] < TRACK_DEG
+                   and out["t_err_cm_max"] < TRACK_CM,
+                   f"bench_tracker: keys, finite values, errors "
+                   f"{out['r_err_deg_max']} deg / {out['t_err_cm_max']} cm "
+                   f"within phase 10a's {TRACK_DEG} / {TRACK_CM}  "
+                   f"[{self.smi}]")
+
+        out = stats["bench_train"] = bench_train.run(
+            os.path.join(ENTRIES_WORK, "train"),
+            log=lambda m: log("   " + m))
+        self.check(set(out) == TRAIN_KEYS and not nonfinite(out),
+                   f"bench_train: keys, finite values  [{self.smi}]")
+
+        self.demo_chain(stats)
+
+    def demo_chain(self, stats):
+        """18: ``python -m onepose_tpu_torch.demo_pipeline``'s ``main`` on
+        a raw capture of the textured plane under ``ENTRIES_WORK`` (mp4v
+        video through cv2, ARKit poses, the box), the weights written as
+        phase 17 writes them (SuperGlue planted on the annotate views'
+        descriptors): parse, SfM (the stem kernel), the demo (the match
+        kernel; the entry's bf16 preset skips the stem)."""
+        import cv2
+
+        from onepose_tpu_torch import demo_pipeline
+        from onepose_tpu_torch.models import convert, superpoint
+        from onepose_tpu_torch.sfm import extract
+        from onepose_tpu_torch.utils import synthetic
+
+        rng = np.random.default_rng(18)
+        demo = os.path.join(ENTRIES_WORK, "data", "demo")
+        cap = synthetic.raw_capture(os.path.join(demo, DEMO_OBJECT),
+                                    DEMO_OBJECT, rng, *DEMO_VIEWS)
+        video = cv2.VideoCapture(os.path.join(
+            demo, DEMO_OBJECT, f"{DEMO_OBJECT}-annotate", "Frames.m4v"))
+        n_video = int(video.get(cv2.CAP_PROP_FRAME_COUNT))
+        video.release()
+        sp = convert.superpoint_from_jax(convert.init_superpoint_params(
+            np.random.default_rng(0)))
+        conf = {k: v for k, v in extract.CONFS["superpoint"]["conf"].items()
+                if k != "descriptor_dim"}
+        views = cap[f"{DEMO_OBJECT}-annotate"][1][::5]
+        det = superpoint.extract(sp.to(self.dev), torch.from_numpy(
+            views[..., None].astype(np.float32)).to(self.dev), conf)
+        synthetic.write_checkpoints(
+            os.path.join(ENTRIES_WORK, "data"), sp.cpu(),
+            convert.plant_superglue(convert.init_superglue_params(rng), det,
+                                    0.0),
+            convert.gats_spg_from_jax(convert.init_gats_spg_params(rng)))
+        t0 = time.perf_counter()
+        self.path_launches("entry_demo_pipeline", lambda: demo_pipeline.main(
+            [DEMO_OBJECT, "--data-root", demo, "-o",
+             f"work_dir={ENTRIES_WORK}", "print_config=False"]))
+        anno = os.path.join(ENTRIES_WORK, "data", "sfm_model", DEMO_OBJECT,
+                            "outputs_superpoint_superglue", "anno",
+                            "idxs.npy")
+        n_points = len(np.load(anno)) if os.path.exists(anno) else 0
+        out_dir = os.path.join(ENTRIES_WORK, "runs", "demo", "demo")
+        stats["demo_pipeline"] = {
+            "s": time.perf_counter() - t0, "video_frames": n_video,
+            "db_points": n_points,
+            "outputs": sorted(os.listdir(out_dir)) if os.path.isdir(
+                out_dir) else []}
+        log("   demo_pipeline: " + json.dumps(stats["demo_pipeline"]))
+        self.check(n_video == DEMO_VIEWS[0] and n_points > 0
+                   and "demo_video.mp4" in stats["demo_pipeline"]["outputs"],
+                   f"demo_pipeline: {n_video} video frames, a DB of "
+                   f"{n_points} points, the demo's video written")
+
+    # -- 19 ---------------------------------------------------------------
+    def batch_rows(self):
+        """19: does a frame's extraction and matching depend on the rows
+        batched with it? Phase 7's models, DB and frames, fp32, the first 4
+        frames at batch 4 and inside batch 8: every aten op's tensor
+        outputs (and the two kernels') fingerprinted by the sum of their
+        bits, each 4-row output against the first half of its 8-row twin;
+        the first op that differs, and how far apart the final outputs are
+        (the bound the card gives; on the CPU both packages give the same
+        bits, tests/test_torch_repairs.py)."""
+        from onepose_tpu_torch import pipeline
+        from onepose_tpu_torch.models import gats_spg, superpoint
+        from onepose_tpu_torch.utils.synthetic import random_db
+
+        rng = np.random.default_rng(0)
+        sp_model, gats_model = random_models(rng)
+        db = random_db(rng, points=SHAPE3D - 8, shape3d=SHAPE3D, leaf=LEAF,
+                       obs=(LEAF, LEAF * 3))
+        pipe = pipeline.PosePipeline(
+            sp_model, gats_model, db, sp_config={"max_keypoints": K_PTS},
+            gats_config={"match_threshold": 0.0}, device=self.dev)
+        images = torch.from_numpy(
+            rng.uniform(0, 1, (B, H, W, 1)).astype(np.float32)).to(self.dev)
+
+        def traced(rows):
+            trace = RowTrace()
+            stem, match = superpoint.fused_stem, gats_spg.dual_softmax_argmax
+            superpoint.fused_stem = trace.wrap("fused_stem (kernel)", stem)
+            gats_spg.dual_softmax_argmax = trace.wrap(
+                "dual_softmax_argmax (kernel)", match)
+            try:
+                with torch.no_grad(), trace:
+                    det = pipe.extract(images[:rows])
+                    m = pipe.match(det)
+            finally:
+                superpoint.fused_stem = stem
+                gats_spg.dual_softmax_argmax = match
+            torch.cuda.synchronize()
+            return trace, (det.keypoints[:4], det.descriptors[:4],
+                           det.scores[:4], m.matches0[:4],
+                           m.matching_scores0[:4])
+
+        four, out4 = traced(4)
+        eight, out8 = traced(B)
+        again, out8b = traced(B)
+        first, compared = four.first_difference(eight)
+        names = ("keypoints", "descriptors", "scores", "matches0",
+                 "matching_scores0")
+        gap = {n: float((a.double() - b.double()).abs().max())
+               for n, a, b in zip(names, out4, out8)}
+        gap["matches0_slots_differ"] = int((out4[3] != out8[3]).sum())
+        gap["keypoints_equal"] = bool(torch.equal(out4[0], out8[0]))
+        repeat = all(torch.equal(a, b) for a, b in zip(out8, out8b)) and \
+            eight.first_difference(again, halves=False)[0] is None
+        stats = self.results["batch_rows"] = {
+            "ops": [len(four.ops), len(eight.ops)], "compared": compared,
+            "first_difference": first, "final_gap": gap,
+            "eight_rows_repeat": repeat, "card": self.smi}
+        log(f"   batch rows: {json.dumps(stats)}")
+        self.check(repeat, "batch rows: the 8-row call repeats its bits")
+        self.check(len(four.ops) == len(eight.ops) and compared > 0,
+                   f"batch rows: the same {len(four.ops)} ops at 4 and 8 "
+                   f"rows, {compared} compared; first difference: {first}")
+        # the bound PERF.md states: the rows part at an aten op (cuDNN's
+        # algorithm by batch), never inside the two kernels, and the
+        # matches by at most BATCH_ROWS_MAX_SLOTS of B/2·K_PTS slots
+        self.check(first is None or "(kernel)" not in first,
+                   f"batch rows: the first difference is not a kernel's "
+                   f"({first})")
+        self.check(gap["matches0_slots_differ"] <= BATCH_ROWS_MAX_SLOTS,
+                   f"batch rows: {gap['matches0_slots_differ']} match slots "
+                   f"differ, at most {BATCH_ROWS_MAX_SLOTS}")
 
     def kernels_line(self):
         st = self.results.get("stem", {}).get(str((B, H, W, 1)), {})
@@ -2738,6 +3007,8 @@ def cards_world(planted=None):
     """14's models, the pipeline's DB, the serving catalog and the
     frames, rebuilt from ``CARDS_SEED`` in every process; ``planted``
     replaces the DBs' 3D points with the planted ones."""
+    from onepose_tpu_torch.utils.synthetic import random_db
+
     rng = np.random.default_rng(CARDS_SEED)
     sp_model, gats_model = random_models(rng)
     kw = dict(points=SHAPE3D - 8, shape3d=SHAPE3D, leaf=LEAF,
@@ -3256,6 +3527,94 @@ def sfm_equal_by_position(dir1, dir2, names, pairs):
     return ok, n_kpts, n_matches
 
 
+def nonfinite(value, path="") -> list:
+    """Paths of the numbers in a JSON-like ``value`` that are not finite
+    (None is not a number)."""
+    if isinstance(value, dict):
+        return sum((nonfinite(v, f"{path}.{k}") for k, v in value.items()),
+                   [])
+    if isinstance(value, list):
+        return sum((nonfinite(v, f"{path}[{i}]")
+                    for i, v in enumerate(value)), [])
+    if isinstance(value, float) and not np.isfinite(value):
+        return [path]
+    return []
+
+
+def fingerprint(t: torch.Tensor) -> torch.Tensor:
+    """The sum of a tensor's bits read as integers of its element size
+    (a 0-dim int64 on its device): equal for equal bits, and for tensors
+    that differ almost surely not."""
+    x = t.detach()
+    x = (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return x.view(ints[x.element_size()]).to(torch.int64).sum()
+
+
+class RowTrace(TorchDispatchMode):
+    """Under it, every aten op's tensor outputs in call order, as (op,
+    [(shape, fingerprint of the whole, of the first half along dim 0)]);
+    ``wrap`` records a function's outputs the same way (the kernels, whose
+    launches no aten op sees). Allocations (``empty``) are left out: their
+    bits are whatever the memory held."""
+
+    SKIP = ("empty", "empty_like", "empty_strided", "new_empty")
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+        self.busy = False
+
+    def record(self, name, out):
+        self.busy = True
+        try:
+            ts = [t for t in (out if isinstance(out, (tuple, list))
+                              else [out]) if isinstance(t, torch.Tensor)]
+            self.ops.append((name, [(
+                tuple(t.shape), fingerprint(t),
+                fingerprint(t[:t.shape[0] // 2]) if t.dim()
+                and t.shape[0] % 2 == 0 else None) for t in ts]))
+        finally:
+            self.busy = False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not self.busy and func.overloadpacket.__name__ not in self.SKIP:
+            self.record(str(func), out)
+        return out
+
+    def wrap(self, name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            self.record(name, out)
+            return out
+        return call
+
+    def first_difference(self, other, halves=True):
+        """(the first op, "index name shape", whose outputs differ from
+        ``other``'s, or None; the count of outputs compared). ``halves``:
+        ``other`` ran twice the rows, and each output whose first dim is
+        twice this one's is held to its first half (outputs of other
+        shapes are not compared); else outputs of equal shape are held
+        whole."""
+        compared = 0
+        for i, ((name, outs), (name2, outs2)) in enumerate(zip(self.ops,
+                                                             other.ops)):
+            if name != name2:
+                return f"{i} {name} (the other call: {name2})", compared
+            for (s1, whole1, _), (s2, whole2, half2) in zip(outs, outs2):
+                if halves and len(s1) and s2 == (2 * s1[0],) + s1[1:]:
+                    same = bool(whole1 == half2)
+                elif not halves and s1 == s2:
+                    same = bool(whole1 == whole2)
+                else:
+                    continue
+                compared += 1
+                if not same:
+                    return f"{i} {name} {list(s1)} vs {list(s2)}", compared
+        return None, compared
+
+
 def launch_counts() -> dict:
     from onepose_tpu_torch.ops import match, stem
 
@@ -3617,20 +3976,6 @@ def random_models(rng):
             convert.gats_spg_from_jax(convert.init_gats_spg_params(rng)))
 
 
-def random_db(rng, points, shape3d, leaf, obs=(2, 10)):
-    from onepose_tpu_torch.datasets import anno
-
-    idxs = rng.integers(obs[0], obs[1], points)
-    total = int(idxs.sum())
-    return anno.build_object_db(
-        avg_keypoints3d=rng.uniform(-0.1, 0.1, (points, 3)).astype(np.float32),
-        avg_descriptors3d=rng.normal(size=(256, points)).astype(np.float32),
-        avg_scores3d=rng.uniform(0, 1, (points, 1)).astype(np.float32),
-        clt_descriptors=rng.normal(size=(256, total)).astype(np.float32),
-        clt_scores=rng.uniform(0, 1, (total, 1)).astype(np.float32),
-        idxs=idxs, num_leaf=leaf, shape3d=shape3d)
-
-
 def plant_geometry(db, matches0, keypoints2d, kmat, poses_gt, rng):
     """A copy of ``db`` whose 3D points are the back-projections, at a
     random depth and under frame b's known pose, of the keypoints that
@@ -3691,7 +4036,9 @@ def main() -> int:
         ("14 several cards", smoke.several_cards),
         ("15 token-sharded model axis", smoke.token_axis),
         ("16 PnP stage profile", smoke.pnp_stages),
-        ("17 real-assets eval entry", smoke.eval_entry)]
+        ("17 real-assets eval entry", smoke.eval_entry),
+        ("18 measurement entries", smoke.entries),
+        ("19 rows batched together", smoke.batch_rows)]
     chosen = None if args.phases is None else set(args.phases.split(","))
     if chosen is not None:
         chosen.add("1")     # the card's name and power limit

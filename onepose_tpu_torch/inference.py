@@ -42,6 +42,21 @@ def _read_list(path):
         return [line.strip() for line in f if line.strip()]
 
 
+def object_db(anno_dir: str, num_leaf: int, shape3d: int):
+    """The object's DB from its anno files, padded to ``shape3d`` points,
+    or, for an object of more points, to the next multiple of 8 above its
+    count: the reference matches against all of an object's points, and
+    the match kernel takes any N2. (The JAX package's entries refuse such
+    an object: ``build_object_db`` raises.)"""
+    from onepose_tpu_torch.datasets import anno
+
+    idxs = osp.join(anno_dir, "idxs.npy")
+    return anno.load_object_db(
+        osp.join(anno_dir, "anno_3d_average.npz"),
+        osp.join(anno_dir, "anno_3d_collect.npz"), idxs, num_leaf=num_leaf,
+        shape3d=shape3d if len(np.load(idxs)) <= shape3d else None)
+
+
 def inference_core(cfg, data_root, seq_dir, sfm_model_dir, sp_model,
                    gats_model, noises: Optional[Iterable] = None):
     """Every frame of ``seq_dir`` through ``PosePipeline`` in batches of
@@ -67,7 +82,6 @@ def inference_core(cfg, data_root, seq_dir, sfm_model_dir, sp_model,
 
 def _core(cfg, seq_dir, sfm_model_dir, sp_model, gats_model, noises):
     from onepose_tpu_torch import pipeline
-    from onepose_tpu_torch.datasets import anno
     from onepose_tpu_torch.evaluators import Evaluator, record_eval_result
     from onepose_tpu_torch.models import superpoint
     from onepose_tpu_torch.parallel import collectives as comm
@@ -82,11 +96,7 @@ def _core(cfg, seq_dir, sfm_model_dir, sp_model, gats_model, noises):
     main = comm.is_main_process()
     anno_dir = path_utils.get_anno_dir(
         sfm_model_dir, cfg.network.detection, cfg.network.matching)
-    db = anno.load_object_db(
-        osp.join(anno_dir, "anno_3d_average.npz"),
-        osp.join(anno_dir, "anno_3d_collect.npz"),
-        osp.join(anno_dir, "idxs.npy"),
-        num_leaf=cfg.num_leaf, shape3d=cfg.shape3d)
+    db = object_db(anno_dir, cfg.num_leaf, cfg.shape3d)
 
     color_dir = ("color" if cfg.object_detect_mode == "GT_box"
                  else "color_det")

@@ -143,10 +143,10 @@ def inference_core(cfg, noises: Optional[Iterable[DemoNoise]] = None):
     import cv2
 
     from onepose_tpu_torch import pipeline
-    from onepose_tpu_torch.datasets import anno
     from onepose_tpu_torch.detector import LocalFeatureObjectDetector
     from onepose_tpu_torch.feature_matching_object_detector import (
         sample_ref_views)
+    from onepose_tpu_torch.inference import object_db
     from onepose_tpu_torch.models import superpoint
     from onepose_tpu_torch.sfm.extract import CONFS, load_gray
     from onepose_tpu_torch.tracker import BATracker
@@ -164,11 +164,7 @@ def inference_core(cfg, noises: Optional[Iterable[DemoNoise]] = None):
 
     anno_dir = path_utils.get_anno_dir(
         sfm_model_dir, cfg.network.detection, cfg.network.matching)
-    db = anno.load_object_db(
-        osp.join(anno_dir, "anno_3d_average.npz"),
-        osp.join(anno_dir, "anno_3d_collect.npz"),
-        osp.join(anno_dir, "idxs.npy"),
-        num_leaf=cfg.num_leaf, shape3d=cfg.shape3d)
+    db = object_db(anno_dir, cfg.num_leaf, cfg.shape3d)
     box3d = np.loadtxt(path_utils.get_3d_box_path(data_root))
     K_full, _ = geo.get_K(path_utils.get_intrin_full_path(seq_dir))
 
@@ -221,10 +217,10 @@ def inference_core(cfg, noises: Optional[Iterable[DemoNoise]] = None):
     return pose_log
 
 
-def main():
+def main(argv=None):
     from onepose_tpu_torch.config import load_config
 
-    cfg = load_config(sys.argv[1:])
+    cfg = load_config(sys.argv[1:] if argv is None else argv)
     {"inference_demo": inference_core}[cfg.type](cfg)
 
 

@@ -34,10 +34,26 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     return eye + a[..., None, None] * K + b[..., None, None] * KK
 
 
+# so3_log's switch to the symmetric part: theta above 171.9 degrees. In
+# fp32 the skew part's round trip is within 2e-6 up to 165 degrees and
+# 1.2e-5 at 172; the symmetric part's is within 6e-7 at every angle
+NEAR_PI_COS = -0.99
+
+
 def so3_log(R: torch.Tensor) -> torch.Tensor:
-    """[..., 3, 3] → [..., 3] axis-angle. Stable away from theta = pi."""
+    """[..., 3, 3] → [..., 3] axis-angle.
+
+    Away from theta = pi: ``theta / (2 sin theta)`` times the skew part,
+    the JAX package's formula. Towards pi that divides by a vanishing
+    sine, and the JAX package's ``so3_log`` loses the axis there; above
+    171.9 degrees (cos theta < ``NEAR_PI_COS``) the port takes the axis
+    from the symmetric part instead, ``(S - cos theta I) / (1 - cos
+    theta) = a a^T``, the column of its largest diagonal entry
+    normalised, signed by the skew part, and theta from ``atan2(sin,
+    cos)``, which keeps its precision at pi."""
     trace = R.diagonal(dim1=-2, dim2=-1).sum(-1)
-    cos_theta = torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0)
+    cos_raw = (trace - 1.0) / 2.0
+    cos_theta = torch.clamp(cos_raw, -1.0, 1.0)
     theta = torch.arccos(cos_theta)
     w_hat = torch.stack([
         R[..., 2, 1] - R[..., 1, 2],
@@ -48,7 +64,20 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     scale = torch.where(
         small, 0.5 + theta * theta / 12.0,
         theta / (2.0 * torch.sin(torch.where(small, 1.0, theta))))
-    return scale[..., None] * w_hat
+    w = scale[..., None] * w_hat
+
+    near = cos_raw < NEAR_PI_COS
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    aat = ((R + R.transpose(-1, -2)) / 2.0 - cos_theta[..., None, None]
+           * eye) / (1.0 - cos_theta)[..., None, None]
+    col = aat.diagonal(dim1=-2, dim2=-1).argmax(-1)
+    a = torch.take_along_dim(aat, col[..., None, None], dim=-1)[..., 0]
+    a = a / torch.linalg.vector_norm(a, dim=-1, keepdim=True).clamp(
+        min=1e-30)
+    a = torch.where((a * w_hat).sum(-1, keepdim=True) < 0, -a, a)
+    theta_pi = torch.atan2(
+        torch.linalg.vector_norm(w_hat, dim=-1) / 2.0, cos_raw)
+    return torch.where(near[..., None], theta_pi[..., None] * a, w)
 
 
 def transform(pose: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

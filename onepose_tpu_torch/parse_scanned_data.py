@@ -206,10 +206,10 @@ def data_process_test(data_dir, downsample_rate=1):
     cap.release()
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--scanned_object_path", type=str, required=True)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     data_dir = args.scanned_object_path
     assert osp.exists(data_dir), f"{data_dir} does not exist"
 

@@ -87,10 +87,10 @@ def merge_anno(cfg):
           matching=cfg.network.matching)
 
 
-def main():
+def main(argv=None):
     from onepose_tpu_torch.config import load_config
 
-    cfg = load_config(sys.argv[1:])
+    cfg = load_config(sys.argv[1:] if argv is None else argv)
     {"sfm": sfm, "merge_anno": merge_anno}[cfg.type](cfg)
 
 

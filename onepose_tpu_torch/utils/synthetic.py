@@ -1,9 +1,12 @@
 """Synthetic scenes with known poses, for running and checking the port
-without a dataset, in numpy and torch only (no cv2): a textured plane
-filmed by a moving camera, in the role of
+without a dataset, in numpy and torch (cv2 only to write a video): a
+textured plane filmed by a moving camera, in the role of
 ``scripts/bench_tracker.py::make_sequence``, or from an arc of a ring
-(SfM's capture); the planting of an object DB's points on that plane; and
-SfM's feature and match files at a known cloud seen from a ring.
+(SfM's capture), or as a raw OnePose Cap capture (the demo chain's
+input); the planting of an object DB's points on that plane; SfM's
+feature and match files at a known cloud seen from a ring; object DBs
+of random features and the intrinsics the scenes share; and the
+entries' three checkpoint files.
 """
 from __future__ import annotations
 
@@ -14,7 +17,29 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from onepose_tpu_torch.datasets import anno
 from onepose_tpu_torch.utils import geometry as geo
+
+
+def pinhole(hw, focal=460.0):
+    """The synthetic worlds' intrinsics: ``focal`` px, the principal point
+    at the centre of an hw x hw image. → [3, 3] float64."""
+    return np.array([[focal, 0, hw / 2], [0, focal, hw / 2], [0, 0, 1]])
+
+
+def random_db(rng, points, shape3d, leaf, obs=(2, 10)):
+    """An object DB of random features from ``rng``: ``points`` 3D points
+    in a 0.2 m cube, each seen obs[0] to obs[1] - 1 times, in a DB of
+    ``shape3d`` slots and ``leaf`` leaves a point."""
+    idxs = rng.integers(obs[0], obs[1], points)
+    total = int(idxs.sum())
+    return anno.build_object_db(
+        avg_keypoints3d=rng.uniform(-0.1, 0.1, (points, 3)).astype(np.float32),
+        avg_descriptors3d=rng.normal(size=(256, points)).astype(np.float32),
+        avg_scores3d=rng.uniform(0, 1, (points, 1)).astype(np.float32),
+        clt_descriptors=rng.normal(size=(256, total)).astype(np.float32),
+        clt_scores=rng.uniform(0, 1, (total, 1)).astype(np.float32),
+        idxs=idxs, num_leaf=leaf, shape3d=shape3d)
 
 
 def plane_sequence(rng, n_frames, hw=512, focal=460.0, n_points=400,
@@ -30,7 +55,7 @@ def plane_sequence(rng, n_frames, hw=512, focal=460.0, n_points=400,
     ``slots``. → (K [3, 3], pts3d [n_points, 3], frames: dicts of image
     [hw, hw] float32 in [0, 1], pose [3, 4], keypoints [slots, 2],
     descriptors [slots, desc_dim], mask [slots])."""
-    K = np.array([[focal, 0, hw / 2], [0, focal, hw / 2], [0, 0, 1]])
+    K = pinhole(hw, focal)
     render = plane_renderer(rng, K, hw)
     pts3d = np.concatenate([rng.uniform(-0.15, 0.15, (n_points, 2)),
                             np.zeros((n_points, 1))], axis=1)
@@ -95,21 +120,97 @@ def ring_views(rng, n_views, hw=512, focal=460.0, arc_deg=120.0,
     horizontal axis, looking at the centre, the plane's y axis up).
     → (K [3, 3], poses [n_views, 3, 4] world→camera, images
     [n_views, hw, hw] float32 in [0, 1])."""
-    K = np.array([[focal, 0, hw / 2], [0, focal, hw / 2], [0, 0, 1]])
+    K = pinhole(hw, focal)
     render = plane_renderer(rng, K, hw)
+    poses = arc_poses(n_views, arc_deg, dist, elevation_deg)
+    return K, poses, np.stack([render(pose) for pose in poses])
+
+
+def arc_poses(n_views, arc_deg, dist, elevation_deg, az0_deg=0.0):
+    """[n_views, 3, 4] world→camera poses along an arc of ``arc_deg``
+    centred on azimuth ``az0_deg`` of a ring around the plane z = 0
+    (:func:`ring_views`' geometry)."""
     el = np.deg2rad(elevation_deg)
-    poses, images = [], []
-    for az in np.deg2rad(np.linspace(-arc_deg / 2, arc_deg / 2, n_views)):
+    poses = []
+    for az in np.deg2rad(az0_deg + np.linspace(-arc_deg / 2, arc_deg / 2,
+                                               n_views)):
         c = dist * np.array([np.sin(az) * np.cos(el), np.sin(el),
                              np.cos(az) * np.cos(el)])
         z = -c / np.linalg.norm(c)
         x = np.cross(z, [0.0, 1.0, 0.0])
         x /= np.linalg.norm(x)
         R = np.stack([x, np.cross(z, x), z])
-        pose = np.concatenate([R, (-R @ c)[:, None]], axis=1)
-        poses.append(pose)
-        images.append(render(pose))
-    return K, np.stack(poses), np.stack(images)
+        poses.append(np.concatenate([R, (-R @ c)[:, None]], axis=1))
+    return np.stack(poses)
+
+
+def raw_capture(obj_dir, obj_name, rng, n_annotate=40, n_test=8, hw=512,
+                focal=460.0):
+    """A OnePose Cap capture of the textured plane (0.4 m square, its box
+    0.02 m deep at the ARKit world's origin) under ``obj_dir``:
+    ``<obj_name>-annotate`` (``n_annotate`` views along a 60 degree arc)
+    and ``<obj_name>-test`` (``n_test`` views along a 30 degree arc
+    between them), each with Frames.m4v (8-bit gray as BGR, mp4v, through
+    cv2), Frames.txt and ARposes.txt, and Box.txt in the annotate one.
+    ARposes hold the camera in the world with ARKit's axis flip, as
+    ``parse_scanned_data`` reads them. → {sequence: (poses [n, 3, 4],
+    frames [n, hw, hw] float32)}, the frames before encoding."""
+    import cv2
+
+    K = pinhole(hw, focal)
+    render = plane_renderer(rng, K, hw)
+    out = {}
+    for seq, poses in ((f"{obj_name}-annotate", arc_poses(
+            n_annotate, 60.0, 0.5, 10.0)), (f"{obj_name}-test", arc_poses(
+                n_test, 30.0, 0.5, 20.0, az0_deg=5.0))):
+        d = os.path.join(obj_dir, seq)
+        os.makedirs(d, exist_ok=True)
+        frames = np.stack([render(pose) for pose in poses])
+        with open(os.path.join(d, "Frames.txt"), "w") as f:
+            for i in range(len(poses)):
+                f.write(f"{i / 30},{i},{focal},{focal},{hw / 2},{hw / 2}\n")
+        lines = ["# ts,px,py,pz,qw,qx,qy,qz"]
+        for i, pose in enumerate(poses):
+            T_oc = np.vstack([pose, [0, 0, 0, 1]])
+            T_cw = np.linalg.inv(T_oc)
+            q = geo.rotmat2qvec(T_cw[:3, :3] @ np.diag([1.0, -1.0, -1.0]))
+            lines.append(f"{i / 30}," + ",".join(
+                str(v) for v in (*T_cw[:3, 3], *q)))
+        with open(os.path.join(d, "ARposes.txt"), "w") as f:
+            f.write("\n".join(lines))
+        if seq.endswith("-annotate"):
+            with open(os.path.join(d, "Box.txt"), "w") as f:
+                f.write("# px,py,pz,ex,ey,ez,qw,qx,qy,qz\n"
+                        "0,0,0,0.4,0.4,0.02,1,0,0,0\n")
+        writer = cv2.VideoWriter(os.path.join(d, "Frames.m4v"),
+                                 cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                                 (hw, hw))
+        for img in frames:
+            gray = np.round(img * 255).astype(np.uint8)
+            writer.write(cv2.cvtColor(gray, cv2.COLOR_GRAY2BGR))
+        writer.release()
+        out[seq] = (poses, frames)
+    return out
+
+
+def write_checkpoints(data_dir, sp_model, sg_params, gats_model):
+    """The three weights the entries load, in the reference's files under
+    ``data_dir/models``: SuperPoint's ``superpoint_v1.pth``, SuperGlue's
+    ``superglue_outdoor.pth`` (from JAX-layout ``sg_params``) and
+    GATsSPG's ``GATsSPG.ckpt``."""
+    from onepose_tpu_torch.models import convert
+    from onepose_tpu_torch.utils import model_io
+
+    models = os.path.join(data_dir, "models")
+    for sub in ("extractors/SuperPoint", "matchers/SuperGlue",
+                "checkpoints/onepose"):
+        os.makedirs(os.path.join(models, sub), exist_ok=True)
+    torch.save(sp_model.state_dict(), os.path.join(
+        models, "extractors", "SuperPoint", "superpoint_v1.pth"))
+    torch.save(convert.superglue_to_state_dict(sg_params), os.path.join(
+        models, "matchers", "SuperGlue", "superglue_outdoor.pth"))
+    model_io.save_gats_spg(gats_model, os.path.join(
+        models, "checkpoints", "onepose", "GATsSPG.ckpt"))
 
 
 def plant_on_plane(db, matches0, keypoints2d, kmat, pose):

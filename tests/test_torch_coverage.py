@@ -1,7 +1,9 @@
 """The port covers the JAX package: every public top-level name of every
-``onepose_tpu/**/*.py``, of the root entries and of the two JAX-side
-scripts that measure the system (``scripts/eval_real.py``,
-``scripts/profile_pnp.py``) is
+``onepose_tpu/**/*.py``, of the root entries and of the JAX-side scripts
+that measure the system (``bench.py``, ``scripts/eval_real.py``,
+``profile_pnp.py``, ``profile_stages.py``, ``bench_serving.py``,
+``bench_tracker.py``, ``bench_train.py``; ``demo_pipeline.sh`` has no
+Python names) is
 
 - defined in the port module of the same path;
 - or listed in ``COUNTERPART`` as "JAX name → port module::name", whose
@@ -38,6 +40,15 @@ ENTRIES = {
     "scripts/eval_real.py": f"{PORT}/eval_real.py",
     # chip_smoke.py phase 16 profiles PnP's stages on the card
     "scripts/profile_pnp.py": None,
+    # the measurement entries (chip_smoke.py phase 18 runs them)
+    "bench.py": f"{PORT}/bench.py",
+    "scripts/profile_stages.py": f"{PORT}/profile_stages.py",
+    "scripts/bench_serving.py": f"{PORT}/bench_serving.py",
+    "scripts/bench_tracker.py": f"{PORT}/bench_tracker.py",
+    "scripts/bench_train.py": f"{PORT}/bench_train.py",
+    # a shell script: no Python names; tests/test_torch_bench_entries.py
+    # holds the port's chain to its steps and overrides
+    "scripts/demo_pipeline.sh": f"{PORT}/demo_pipeline.py",
 }
 
 COUNTERPART = {
@@ -104,6 +115,10 @@ NOT_PORTED = {
     "onepose_tpu/models/superpoint.py::Params": "a JAX pytree type alias",
     "onepose_tpu/models/gats_spg.py::Params": "a JAX pytree type alias",
     "onepose_tpu/models/superglue.py::Params": "a JAX pytree type alias",
+    "bench.py::PEAK_HBM_BPS":
+        "the chips' HBM rates for XLA's byte counts; eager torch has no cost "
+        "analysis of a stage's bytes, so the port's roofline bounds by FLOPs "
+        "alone (bytes_mb null)",
     "onepose_tpu/serving.py::put_global":
         "JAX's global-array placement from a full host copy; the port has "
         "no global arrays: each rank moves its own rows to its card",
@@ -163,6 +178,8 @@ def _defs(path):
     → their AST nodes; None when the file does not exist."""
     if path is None or not os.path.exists(os.path.join(REPO, path)):
         return None
+    if not path.endswith(".py"):
+        return {}
     tree = ast.parse(open(os.path.join(REPO, path)).read(), path)
     out = {}
     for node in tree.body:

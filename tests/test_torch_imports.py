@@ -90,6 +90,8 @@ def test_port_never_imports_the_jax_package():
             "sfm/runner.py", "runtime/native.py", "utils/colmap_db.py",
             "datasets/merge.py", "run.py", "parse_scanned_data.py",
             "video2img.py", "utils/hdf5.py", "eval_real.py",
+            "bench.py", "profile_stages.py", "bench_serving.py",
+            "bench_tracker.py", "bench_train.py", "demo_pipeline.py",
             *TRAINING_MODULES} <= rel
     files += [os.path.join(REPO, "chip_smoke.py"),
               os.path.join(REPO, "tests", "test_torch_cuda.py")]
