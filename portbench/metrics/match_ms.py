@@ -1,0 +1,8 @@
+"""ms: the mean time of the GATsSPG matching stage (the match kernel inside) a call over the traced run's window, by
+CUDA events at the stage boundaries (device time, dispatch gaps
+included)."""
+
+
+def read(ctx):
+    ms = ctx.stages.get("match")
+    return sum(ms) / len(ms) if ms else None
