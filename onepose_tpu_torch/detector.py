@@ -25,6 +25,7 @@ from onepose_tpu_torch.ops import similarity
 from onepose_tpu_torch.ops.precision import pin_fp32
 from onepose_tpu_torch.sfm.extract import CONFS
 from onepose_tpu_torch.utils import geometry as geo
+from onepose_tpu_torch.utils.profiling import span
 
 # below this many inliers the detector falls back to the whole frame
 MIN_INLIERS = 6
@@ -158,22 +159,24 @@ class LocalFeatureObjectDetector:
 
     def box(self, fits: similarity.SimilarityResult, query_shape):
         """The DB view corners warped by the best view's similarity →
-        (bbox [4], inliers); the whole frame under MIN_INLIERS."""
-        qh, qw = query_shape
-        counts = fits.num_inliers.cpu().numpy()
-        best = int(np.argmax(counts))
-        if counts[best] < MIN_INLIERS:
-            # the reference's fallback: the whole frame
-            return np.array([0, 0, qw, qh], np.int32), 0
+        (bbox [4], inliers); the whole frame under MIN_INLIERS. A call is the
+        span ``box``: its reads of the fit to the host."""
+        with span("box"):
+            qh, qw = query_shape
+            counts = fits.num_inliers.cpu().numpy()
+            best = int(np.argmax(counts))
+            if counts[best] < MIN_INLIERS:
+                # the reference's fallback: the whole frame
+                return np.array([0, 0, qw, qh], np.int32), 0
 
-        A = fits.A[best].cpu().numpy()
-        t = fits.t[best].cpu().numpy()
-        h, w = self.db_shape
-        corners = np.array([[0, 0], [w, 0], [0, h], [w, h]], np.float32)
-        warped = corners @ A.T + t
-        x0, y0 = np.floor(warped.min(axis=0)).astype(np.int32)
-        x1, y1 = np.ceil(warped.max(axis=0)).astype(np.int32)
-        return np.array([x0, y0, x1, y1], np.int32), int(counts[best])
+            A = fits.A[best].cpu().numpy()
+            t = fits.t[best].cpu().numpy()
+            h, w = self.db_shape
+            corners = np.array([[0, 0], [w, 0], [0, h], [w, h]], np.float32)
+            warped = corners @ A.T + t
+            x0, y0 = np.floor(warped.min(axis=0)).astype(np.int32)
+            x1, y1 = np.ceil(warped.max(axis=0)).astype(np.int32)
+            return np.array([x0, y0, x1, y1], np.int32), int(counts[best])
 
     def detect(self, query_img: np.ndarray, K: np.ndarray,
                crop_size: int = 512,

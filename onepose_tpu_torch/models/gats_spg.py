@@ -47,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from onepose_tpu_torch.ops.match import dual_softmax_argmax
 from onepose_tpu_torch.parallel import collectives as comm
+from onepose_tpu_torch.utils.profiling import span
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -422,13 +423,18 @@ def forward_match_only(model: GATsSPG, data: Dict[str, torch.Tensor],
     ``pallas_call``, so the kernel sees whole rows and every rank returns
     the whole outputs."""
     cfg = resolve_config(config)
-    m0, m1 = gnn_body(model, data, cfg, token_group)
-    mask3d = data.get("mask3d")
-    if token_group is not None:
-        m1 = comm.all_gather_cat(m1, 1, token_group)
-        if mask3d is not None:
-            mask3d = comm.all_gather_cat(mask3d, 1, token_group)
-    idx0, max0, idx1, max1 = dual_softmax_argmax(m0, m1, cfg["scale_factor"])
-    out = _mutual_threshold(idx0, max0, idx1, max1, cfg["match_threshold"],
-                            data.get("mask2d"), mask3d)
-    return MatchOutput(*out, m0.new_zeros((m0.shape[0], 0, 0)))
+    with span("match"):
+        with span("match.gnn"):
+            m0, m1 = gnn_body(model, data, cfg, token_group)
+        mask3d = data.get("mask3d")
+        if token_group is not None:
+            m1 = comm.all_gather_cat(m1, 1, token_group)
+            if mask3d is not None:
+                mask3d = comm.all_gather_cat(mask3d, 1, token_group)
+        with span("match.kernel"):
+            idx0, max0, idx1, max1 = dual_softmax_argmax(
+                m0, m1, cfg["scale_factor"])
+            out = _mutual_threshold(idx0, max0, idx1, max1,
+                                    cfg["match_threshold"],
+                                    data.get("mask2d"), mask3d)
+        return MatchOutput(*out, m0.new_zeros((m0.shape[0], 0, 0)))

@@ -24,6 +24,8 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import torch
 from torch import nn
 
+from onepose_tpu_torch.utils.profiling import span
+
 DEFAULT_CONFIG = {
     "descriptor_dim": 256,
     "keypoint_encoder": (32, 64, 128, 256),
@@ -170,7 +172,21 @@ def resolve_config(config: Optional[dict]) -> dict:
 def log_assignment(model: SuperGlue, data: Dict[str, torch.Tensor],
                    cfg: dict) -> torch.Tensor:
     """The encoder, the GNN, the final projection and Sinkhorn →
-    [B, N0+1, N1+1] log assignment (dustbins last)."""
+    [B, N0+1, N1+1] log assignment (dustbins last). The span
+    ``superglue``, its children ``superglue.gnn`` (up to the scores) and
+    ``superglue.sinkhorn``."""
+    with span("superglue"):
+        with span("superglue.gnn"):
+            scores = _scores(model, data, cfg)
+        with span("superglue.sinkhorn"):
+            return log_optimal_transport(scores, model.bin_score,
+                                         cfg["sinkhorn_iterations"])
+
+
+def _scores(model: SuperGlue, data: Dict[str, torch.Tensor],
+            cfg: dict) -> torch.Tensor:
+    """The encoder, the GNN and the final projection → [B, N0, N1]
+    scores, padded slots at -1e9."""
     desc0 = data["descriptors0"].float()
     desc1 = data["descriptors1"].float()
     kpts0 = normalize_keypoints(data["keypoints0"].float(), *data["shape0"])
@@ -201,36 +217,38 @@ def log_assignment(model: SuperGlue, data: Dict[str, torch.Tensor],
         scores = torch.where(mask0[:, :, None], scores, -1e9)
     if mask1 is not None:
         scores = torch.where(mask1[:, None, :], scores, -1e9)
-    return log_optimal_transport(scores, model.bin_score,
-                                 cfg["sinkhorn_iterations"])
+    return scores
 
 
 def mutual_matches(Z: torch.Tensor, match_threshold: float,
                    mask0: Optional[torch.Tensor] = None,
                    mask1: Optional[torch.Tensor] = None) -> SuperGlueOutput:
     """Mutual-max + threshold matching on a log assignment; the first
-    index wins ties, as ``jnp.argmax`` does."""
-    inner = Z[:, :-1, :-1]
-    n0, n1 = inner.shape[1:]
-    indices0 = inner.argmax(dim=2)
-    indices1 = inner.argmax(dim=1)
-    max0 = inner.amax(dim=2)
-    ar0 = torch.arange(n0, device=Z.device)[None]
-    ar1 = torch.arange(n1, device=Z.device)[None]
-    mutual0 = ar0 == torch.gather(indices1, 1, indices0)
-    mutual1 = ar1 == torch.gather(indices0, 1, indices1)
+    index wins ties, as ``jnp.argmax`` does. The span ``superglue``, its child
+    ``superglue.mutual``."""
+    with span("superglue"), span("superglue.mutual"):
+        inner = Z[:, :-1, :-1]
+        n0, n1 = inner.shape[1:]
+        indices0 = inner.argmax(dim=2)
+        indices1 = inner.argmax(dim=1)
+        max0 = inner.amax(dim=2)
+        ar0 = torch.arange(n0, device=Z.device)[None]
+        ar1 = torch.arange(n1, device=Z.device)[None]
+        mutual0 = ar0 == torch.gather(indices1, 1, indices0)
+        mutual1 = ar1 == torch.gather(indices0, 1, indices1)
 
-    mscores0 = torch.where(mutual0, torch.exp(max0), 0.0)
-    mscores1 = torch.where(mutual1, torch.gather(mscores0, 1, indices1), 0.0)
-    valid0 = mutual0 & (mscores0 > match_threshold)
-    if mask0 is not None:
-        valid0 = valid0 & mask0
-    if mask1 is not None:
-        valid0 = valid0 & torch.gather(mask1, 1, indices0)
-    valid1 = mutual1 & torch.gather(valid0, 1, indices1)
-    matches0 = torch.where(valid0, indices0, -1).to(torch.int32)
-    matches1 = torch.where(valid1, indices1, -1).to(torch.int32)
-    return SuperGlueOutput(matches0, matches1, mscores0, mscores1)
+        mscores0 = torch.where(mutual0, torch.exp(max0), 0.0)
+        mscores1 = torch.where(mutual1, torch.gather(mscores0, 1, indices1),
+                               0.0)
+        valid0 = mutual0 & (mscores0 > match_threshold)
+        if mask0 is not None:
+            valid0 = valid0 & mask0
+        if mask1 is not None:
+            valid0 = valid0 & torch.gather(mask1, 1, indices0)
+        valid1 = mutual1 & torch.gather(valid0, 1, indices1)
+        matches0 = torch.where(valid0, indices0, -1).to(torch.int32)
+        matches1 = torch.where(valid1, indices1, -1).to(torch.int32)
+        return SuperGlueOutput(matches0, matches1, mscores0, mscores1)
 
 
 @torch.no_grad()

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from onepose_tpu_torch.ops.stem import fused_stem
+from onepose_tpu_torch.utils.profiling import span
 
 DEFAULT_CONFIG = {
     "descriptor_dim": 256,
@@ -143,36 +144,39 @@ def dense_heads(model: SuperPoint, images: torch.Tensor,
     check_config(cfg)
     cdt = _dtype(cfg, "compute_dtype")
     sdt = _dtype(cfg, "stem_dtype") if cdt == torch.float32 else cdt
-    if sdt == torch.float32:
-        x = fused_stem(images.float(), _hwio(model.conv1a),
-                       model.conv1a.bias, _hwio(model.conv1b),
-                       model.conv1b.bias).permute(0, 3, 1, 2)
-    else:   # the direct stem in bf16
-        x = images.permute(0, 3, 1, 2).to(sdt)
-        x = _relu_conv(_relu_conv(x, model.conv1a), model.conv1b)
-        x = F.max_pool2d(x, 2).to(cdt)
-    for entry in ENCODER_CHANNELS[3:]:
-        if entry[0] == "pool":
-            x = F.max_pool2d(x, 2)
-        else:
-            x = _relu_conv(x, getattr(model, entry[0]))
+    with span("extract.stem"):
+        if sdt == torch.float32:
+            x = fused_stem(images.float(), _hwio(model.conv1a),
+                           model.conv1a.bias, _hwio(model.conv1b),
+                           model.conv1b.bias).permute(0, 3, 1, 2)
+        else:   # the direct stem in bf16
+            x = images.permute(0, 3, 1, 2).to(sdt)
+            x = _relu_conv(_relu_conv(x, model.conv1a), model.conv1b)
+            x = F.max_pool2d(x, 2).to(cdt)
+    with span("extract.encoder"):
+        for entry in ENCODER_CHANNELS[3:]:
+            if entry[0] == "pool":
+                x = F.max_pool2d(x, 2)
+            else:
+                x = _relu_conv(x, getattr(model, entry[0]))
 
-    # both heads' first convs read the same trunk output: one 128→512 conv
-    w_heads = torch.cat([model.convPa.weight, model.convDa.weight])
-    b_heads = torch.cat([model.convPa.bias, model.convDa.bias])
-    heads = F.relu(_conv(x, w_heads, b_heads, 1))
-    cpa, cda = heads[:, :256], heads[:, 256:]
-    logits = _conv(cpa, model.convPb.weight, model.convPb.bias, 0)
-    desc = _conv(cda, model.convDb.weight, model.convDb.bias, 0)
+        # both heads' first convs read the same trunk output: one 128→512 conv
+        w_heads = torch.cat([model.convPa.weight, model.convDa.weight])
+        b_heads = torch.cat([model.convPa.bias, model.convDa.bias])
+        heads = F.relu(_conv(x, w_heads, b_heads, 1))
+        cpa, cda = heads[:, :256], heads[:, 256:]
+        logits = _conv(cpa, model.convPb.weight, model.convPb.bias, 0)
+        desc = _conv(cda, model.convDb.weight, model.convDb.bias, 0)
 
-    # detector head: 65-channel softmax, dustbin dropped, 8x depth-to-space
-    probs = torch.softmax(logits.float(), dim=1)[:, :-1]
-    scores = F.pixel_shuffle(probs, 8)[:, 0]
+        # detector head: 65-channel softmax, dustbin dropped, 8x
+        # depth-to-space
+        probs = torch.softmax(logits.float(), dim=1)[:, :-1]
+        scores = F.pixel_shuffle(probs, 8)[:, 0]
 
-    desc = desc.float()
-    desc = desc / torch.clamp(
-        torch.linalg.vector_norm(desc, dim=1, keepdim=True), min=1e-12)
-    return scores, desc.permute(0, 2, 3, 1)
+        desc = desc.float()
+        desc = desc / torch.clamp(
+            torch.linalg.vector_norm(desc, dim=1, keepdim=True), min=1e-12)
+        return scores, desc.permute(0, 2, 3, 1)
 
 
 def _maxpool_same(x: torch.Tensor, radius: int) -> torch.Tensor:
@@ -271,6 +275,9 @@ def extract(model: SuperPoint, images: torch.Tensor,
     cfg.update(config or {})
     if cfg["max_keypoints"] is None or cfg["max_keypoints"] < 0:
         raise ValueError("SuperPoint needs a static max_keypoints budget")
-    scores, desc = dense_heads(model, images, cfg["compute_dtype"],
-                               cfg["stem_dtype"], cfg["stem"])
-    return select_keypoints(simple_nms(scores, cfg["nms_radius"]), desc, cfg)
+    with span("extract"):
+        scores, desc = dense_heads(model, images, cfg["compute_dtype"],
+                                   cfg["stem_dtype"], cfg["stem"])
+        with span("extract.select"):
+            return select_keypoints(simple_nms(scores, cfg["nms_radius"]),
+                                    desc, cfg)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from onepose_tpu_torch.ops import lie
+from onepose_tpu_torch.utils.profiling import span
 
 
 class PnPResult(NamedTuple):
@@ -646,133 +647,161 @@ def ransac_pnp(pts2d: torch.Tensor, pts3d: torch.Tensor, mask: torch.Tensor,
     before the polish; with the inliers and count of that pose, ungated,
     and ``success`` True. ``chip_smoke.py`` times the cumulative prefixes.
     No product path sets it.
+
+    A call is the span ``pnp``; its children, in order, are the stages of
+    :data:`PROFILE_PREFIXES` (``pnp.solve``, ``pnp.score``, ``pnp.lo``,
+    ``pnp.refit``) and ``pnp.polish``, the winner's Gauss-Newton polish
+    and final score.
     """
     if profile_prefix not in PROFILE_PREFIXES + (None,):
         raise ValueError(f"profile_prefix {profile_prefix!r} is not one "
                          f"of {PROFILE_PREFIXES}")
-    B, n = mask.shape
-    f32 = torch.float32
-    pts2d = pts2d.to(f32)
-    pts3d = pts3d.to(f32)
-    K = K.to(f32)
-    if noise is None:
-        noise = draw_noise(B, n, num_hypotheses, lo_hypotheses, generator,
-                           pts3d.device)
-    maskf = mask.to(f32)
-    n_valid = mask.sum(-1)
+    with span("pnp"):
+        with span("pnp.solve"):
+            B, n = mask.shape
+            f32 = torch.float32
+            pts2d = pts2d.to(f32)
+            pts3d = pts3d.to(f32)
+            K = K.to(f32)
+            if noise is None:
+                noise = draw_noise(B, n, num_hypotheses, lo_hypotheses,
+                                   generator, pts3d.device)
+            maskf = mask.to(f32)
+            n_valid = mask.sum(-1)
 
-    fx, fy = K[:, 0, 0], K[:, 1, 1]
-    cx, cy = K[:, 0, 2], K[:, 1, 2]
-    uv_norm = torch.stack([(pts2d[..., 0] - cx[:, None]) / fx[:, None],
-                           (pts2d[..., 1] - cy[:, None]) / fy[:, None]], -1)
-    thr2 = reproj_threshold * reproj_threshold
+            fx, fy = K[:, 0, 0], K[:, 1, 1]
+            cx, cy = K[:, 0, 2], K[:, 1, 2]
+            uv_norm = torch.stack(
+                [(pts2d[..., 0] - cx[:, None]) / fx[:, None],
+                 (pts2d[..., 1] - cy[:, None]) / fy[:, None]], -1)
+            thr2 = reproj_threshold * reproj_threshold
 
-    def score(pose):
-        """pose [B, C, 3, 4] → (good [B, C, N], count [B, C], msac [B, C])."""
-        cam = lie.transform(pose, pts3d[:, None])
-        z = cam[..., 2]
-        proj = cam[..., :2] / torch.clamp(z.abs(), min=1e-6)[..., None]
-        err2 = (((proj[..., 0] - uv_norm[:, None, :, 0])
-                 * fx[:, None, None]) ** 2
-                + ((proj[..., 1] - uv_norm[:, None, :, 1])
-                   * fy[:, None, None]) ** 2)
-        good = (err2 < thr2) & (z > 0) & mask[:, None]
-        msac = torch.sum(torch.where(good, 1.0 - err2 / thr2, 0.0), -1)
-        return good, good.sum(-1), msac
+            def score(pose):
+                """pose [B, C, 3, 4] → (good [B, C, N], count [B, C],
+                msac [B, C])."""
+                cam = lie.transform(pose, pts3d[:, None])
+                z = cam[..., 2]
+                proj = cam[..., :2] / torch.clamp(z.abs(),
+                                                  min=1e-6)[..., None]
+                err2 = (((proj[..., 0] - uv_norm[:, None, :, 0])
+                         * fx[:, None, None]) ** 2
+                        + ((proj[..., 1] - uv_norm[:, None, :, 1])
+                           * fy[:, None, None]) ** 2)
+                good = (err2 < thr2) & (z > 0) & mask[:, None]
+                msac = torch.sum(torch.where(good, 1.0 - err2 / thr2, 0.0),
+                                 -1)
+                return good, good.sum(-1), msac
 
-    def msac_for(pose):
-        return score(pose)[2]
+            def msac_for(pose):
+                return score(pose)[2]
 
-    # all hypotheses at once: one homogeneous [N, 4] x [4, H] product per
-    # camera coordinate (the JAX package's score_many form)
-    pts_h = torch.cat([pts3d, torch.ones_like(pts3d[..., :1])], -1)
+            # all hypotheses at once: one homogeneous [N, 4] x [4, H] product
+            # per camera coordinate (the JAX package's score_many form)
+            pts_h = torch.cat([pts3d, torch.ones_like(pts3d[..., :1])], -1)
 
-    def score_many(poses):
-        """poses [B, H, 3, 4] → msac [B, H]."""
-        X, Y, Z = (pts_h @ poses[:, :, r].transpose(-1, -2) for r in range(3))
-        az = torch.clamp(Z.abs(), min=1e-6)
-        ex = (X / az - uv_norm[..., 0:1]) * fx[:, None, None]
-        ey = (Y / az - uv_norm[..., 1:2]) * fy[:, None, None]
-        err2 = ex * ex + ey * ey
-        good = (err2 < thr2) & (Z > 0) & mask[..., None]
-        return torch.sum(torch.where(good, 1.0 - err2 / thr2, 0.0), 1)
+            def score_many(poses):
+                """poses [B, H, 3, 4] → msac [B, H]."""
+                X, Y, Z = (pts_h @ poses[:, :, r].transpose(-1, -2)
+                           for r in range(3))
+                az = torch.clamp(Z.abs(), min=1e-6)
+                ex = (X / az - uv_norm[..., 0:1]) * fx[:, None, None]
+                ey = (Y / az - uv_norm[..., 1:2]) * fy[:, None, None]
+                err2 = ex * ex + ey * ey
+                good = (err2 < thr2) & (Z > 0) & mask[..., None]
+                return torch.sum(torch.where(good, 1.0 - err2 / thr2, 0.0),
+                                 1)
 
-    # --- round 1: minimal hypotheses from three solver families ---
-    idx3 = _sample_hypothesis_indices(noise.k3, mask, 3)
-    idx4 = _sample_hypothesis_indices(noise.k4, mask, 4)
-    idx6 = _sample_hypothesis_indices(noise.k6, mask, sample_size)
-    poses_p3p = p3p(_gather_points(pts3d, idx3), _gather_points(uv_norm, idx3))
-    poses_p3p = poses_p3p.reshape(B, -1, 3, 4)
-    poses_pl = planar_pnp(_gather_points(pts3d, idx4),
-                          _gather_points(uv_norm, idx4),
-                          _gather_points(maskf, idx4))
-    poses_p6 = p6p_dlt(_gather_points(pts3d, idx6),
-                       _gather_points(uv_norm, idx6),
-                       _gather_points(maskf, idx6))
-    poses = torch.cat([poses_p3p, poses_pl, poses_p6], 1)
+            # --- round 1: minimal hypotheses from three solver families ---
+            idx3 = _sample_hypothesis_indices(noise.k3, mask, 3)
+            idx4 = _sample_hypothesis_indices(noise.k4, mask, 4)
+            idx6 = _sample_hypothesis_indices(noise.k6, mask, sample_size)
+            poses_p3p = p3p(_gather_points(pts3d, idx3),
+                            _gather_points(uv_norm, idx3))
+            poses_p3p = poses_p3p.reshape(B, -1, 3, 4)
+            poses_pl = planar_pnp(_gather_points(pts3d, idx4),
+                                  _gather_points(uv_norm, idx4),
+                                  _gather_points(maskf, idx4))
+            poses_p6 = p6p_dlt(_gather_points(pts3d, idx6),
+                               _gather_points(uv_norm, idx6),
+                               _gather_points(maskf, idx6))
+            poses = torch.cat([poses_p3p, poses_pl, poses_p6], 1)
 
-    def prefix_result(pose):
-        good, count, _ = score(pose[:, None])
-        return PnPResult(pose, good[:, 0], count[:, 0].to(torch.int32),
-                         torch.ones(B, dtype=torch.bool, device=pose.device))
+            def prefix_result(pose):
+                good, count, _ = score(pose[:, None])
+                return PnPResult(pose, good[:, 0],
+                                 count[:, 0].to(torch.int32),
+                                 torch.ones(B, dtype=torch.bool,
+                                            device=pose.device))
 
-    if profile_prefix == "solve":
-        return prefix_result(poses[:, 0])
+            if profile_prefix == "solve":
+                return prefix_result(poses[:, 0])
 
-    cands = _take(poses, _top_k_indices(score_many(poses), 4))  # [B, 4, 3, 4]
+        with span("pnp.score"):
+            # [B, 4, 3, 4]
+            cands = _take(poses, _top_k_indices(score_many(poses), 4))
 
-    if profile_prefix == "score":
-        return prefix_result(cands[:, 0])
+            if profile_prefix == "score":
+                return prefix_result(cands[:, 0])
 
-    # --- round 2 (LO): non-minimal resampling from the consensus set ---
-    if lo_hypotheses > 0:
-        lo_inl = score(cands[:, :1])[0][:, 0]
-        idx_lo = _sample_hypothesis_indices(noise.lo, lo_inl, 8)
-        poses_lo = p6p_dlt(_gather_points(pts3d, idx_lo),
-                           _gather_points(uv_norm, idx_lo),
-                           _gather_points(maskf, idx_lo))
-        best_lo = _take(poses_lo, score_many(poses_lo).argmax(-1, keepdim=True))
-        cands = torch.cat([cands, best_lo], 1)
+        with span("pnp.lo"):
+            # --- round 2 (LO): non-minimal resampling from the consensus
+            # set ---
+            if lo_hypotheses > 0:
+                lo_inl = score(cands[:, :1])[0][:, 0]
+                idx_lo = _sample_hypothesis_indices(noise.lo, lo_inl, 8)
+                poses_lo = p6p_dlt(_gather_points(pts3d, idx_lo),
+                                   _gather_points(uv_norm, idx_lo),
+                                   _gather_points(maskf, idx_lo))
+                best_lo = _take(poses_lo, score_many(poses_lo).argmax(
+                    -1, keepdim=True))
+                cands = torch.cat([cands, best_lo], 1)
 
-    if profile_prefix == "lo":
-        return prefix_result(cands[:, -1])
+            if profile_prefix == "lo":
+                return prefix_result(cands[:, -1])
 
-    # --- iterated refit chains on every candidate + one GN step each ---
-    C = cands.shape[1]
-    p3 = pts3d[:, None].expand(B, C, n, 3)
-    uvc = uv_norm[:, None].expand(B, C, n, 2)
-    pose = cands
-    for _ in range(max(lo_iters, 1)):
-        w = score(pose)[0].to(f32)
-        pose_g = epnp(p3, uvc, w + 1e-9)
-        pose_p = planar_pnp(p3, uvc, w + 1e-9)
-        pose_r = torch.where(
-            (msac_for(pose_g) >= msac_for(pose_p))[..., None, None],
-            pose_g, pose_p)
-        pose_r = gauss_newton_refine(pose_r, p3, uvc, w,
-                                     iters=min(1, refine_iters))
-        better = msac_for(pose_r) >= msac_for(pose)
-        pose = torch.where(better[..., None, None], pose_r, pose)
-    pose_best = _take(pose, score_many(pose).argmax(-1, keepdim=True))
+        with span("pnp.refit"):
+            # --- iterated refit chains on every candidate + one GN step
+            # each ---
+            C = cands.shape[1]
+            p3 = pts3d[:, None].expand(B, C, n, 3)
+            uvc = uv_norm[:, None].expand(B, C, n, 2)
+            pose = cands
+            for _ in range(max(lo_iters, 1)):
+                w = score(pose)[0].to(f32)
+                pose_g = epnp(p3, uvc, w + 1e-9)
+                pose_p = planar_pnp(p3, uvc, w + 1e-9)
+                pose_r = torch.where(
+                    (msac_for(pose_g) >= msac_for(pose_p))[..., None, None],
+                    pose_g, pose_p)
+                pose_r = gauss_newton_refine(pose_r, p3, uvc, w,
+                                             iters=min(1, refine_iters))
+                better = msac_for(pose_r) >= msac_for(pose)
+                pose = torch.where(better[..., None, None], pose_r, pose)
+            pose_best = _take(pose,
+                              score_many(pose).argmax(-1, keepdim=True))
 
-    if profile_prefix == "refit":
-        return prefix_result(pose_best[:, 0])
+            if profile_prefix == "refit":
+                return prefix_result(pose_best[:, 0])
 
-    # full-strength GN polish on the winner's inlier set, kept only if it
-    # does not lose consensus
-    if refine_iters > 0:
-        inl_b = score(pose_best)[0].to(f32)
-        pose_pol = gauss_newton_refine(pose_best, pts3d[:, None],
-                                       uv_norm[:, None], inl_b,
-                                       iters=refine_iters)
-        keep = msac_for(pose_pol) >= msac_for(pose_best)
-        pose_best = torch.where(keep[..., None, None], pose_pol, pose_best)
+        with span("pnp.polish"):
+            # full-strength GN polish on the winner's inlier set, kept only
+            # if it does not lose consensus
+            if refine_iters > 0:
+                inl_b = score(pose_best)[0].to(f32)
+                pose_pol = gauss_newton_refine(pose_best, pts3d[:, None],
+                                               uv_norm[:, None], inl_b,
+                                               iters=refine_iters)
+                keep = msac_for(pose_pol) >= msac_for(pose_best)
+                pose_best = torch.where(keep[..., None, None], pose_pol,
+                                        pose_best)
 
-    inliers, count, _ = score(pose_best)
-    inliers, count, pose_best = inliers[:, 0], count[:, 0], pose_best[:, 0]
-    min_inl = min(sample_size, 4)
-    success = (n_valid >= min_inl) & (count >= min_inl)
-    eye34 = torch.eye(3, 4, dtype=f32, device=pose_best.device)
-    pose_final = torch.where(success[:, None, None], pose_best, eye34)
-    return PnPResult(pose_final, inliers & success[:, None],
-                     torch.where(success, count, 0).to(torch.int32), success)
+            inliers, count, _ = score(pose_best)
+            inliers, count = inliers[:, 0], count[:, 0]
+            pose_best = pose_best[:, 0]
+            min_inl = min(sample_size, 4)
+            success = (n_valid >= min_inl) & (count >= min_inl)
+            eye34 = torch.eye(3, 4, dtype=f32, device=pose_best.device)
+            pose_final = torch.where(success[:, None, None], pose_best, eye34)
+            return PnPResult(pose_final, inliers & success[:, None],
+                             torch.where(success, count, 0).to(torch.int32),
+                             success)

@@ -22,6 +22,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from onepose_tpu_torch.utils.profiling import span
+
 
 class SimilarityResult(NamedTuple):
     A: torch.Tensor            # [V, 2, 2] rotation-scale
@@ -86,40 +88,43 @@ def ransac_similarity(src: torch.Tensor, dst: torch.Tensor,
                       ) -> SimilarityResult:
     """src, dst [V, N, 2]; mask [V, N] bool. An inlier maps within
     ``threshold`` pixels (the reference uses 6). ``noise`` [V, H, N]
-    uniform in [0, 1) replaces the draw from ``generator``."""
-    src = src.to(torch.float32)
-    dst = dst.to(torch.float32)
-    v, n = mask.shape
-    if noise is None:
-        noise = torch.rand((v, num_hypotheses, n), generator=generator,
-                           device=src.device)
-    scored = torch.where(mask[:, None, :], noise, -1.0)
-    # two distinct valid indices per hypothesis, ties to the lower index
-    idx = torch.sort(scored, dim=-1, descending=True, stable=True)[1][..., :2]
-    views = torch.arange(v, device=src.device)[:, None, None]
-    A_h, t_h = _solve_two_point(src[views, idx], dst[views, idx])
-    good = _inliers(src, dst, mask, A_h, t_h, threshold)        # [V, H, N]
-    best = good.sum(-1).argmax(-1)                              # [V]
-    pick = torch.arange(v, device=src.device)
-    w = good[pick, best].to(torch.float32)
-    # the carry starts from the winning hypothesis's own model, so the
-    # guard below always falls back to a valid estimate
-    A, t = A_h[pick, best], t_h[pick, best]
+    uniform in [0, 1) replaces the draw from ``generator``. A call is
+    the span ``fit``."""
+    with span("fit"):
+        src = src.to(torch.float32)
+        dst = dst.to(torch.float32)
+        v, n = mask.shape
+        if noise is None:
+            noise = torch.rand((v, num_hypotheses, n), generator=generator,
+                               device=src.device)
+        scored = torch.where(mask[:, None, :], noise, -1.0)
+        # two distinct valid indices per hypothesis, ties to the lower index
+        idx = torch.sort(scored, dim=-1, descending=True,
+                         stable=True)[1][..., :2]
+        views = torch.arange(v, device=src.device)[:, None, None]
+        A_h, t_h = _solve_two_point(src[views, idx], dst[views, idx])
+        good = _inliers(src, dst, mask, A_h, t_h, threshold)        # [V, H, N]
+        best = good.sum(-1).argmax(-1)                              # [V]
+        pick = torch.arange(v, device=src.device)
+        w = good[pick, best].to(torch.float32)
+        # the carry starts from the winning hypothesis's own model, so the
+        # guard below always falls back to a valid estimate
+        A, t = A_h[pick, best], t_h[pick, best]
 
-    # IRLS: refit on the inliers, re-select, repeat (cv2's post-RANSAC
-    # refinement). If a round leaves fewer than 2 inliers, the next refit's
-    # +1e-9 weights would fit all correspondences, outliers included, so
-    # that view keeps its previous carry.
-    for _ in range(4):
-        A_new, t_new = _solve_weighted(src, dst, w + 1e-9)
-        good = _inliers(src, dst, mask, A_new, t_new, threshold)
-        ok = good.sum(-1) >= 2
-        w = torch.where(ok[:, None], good.to(torch.float32), w)
-        A = torch.where(ok[:, None, None], A_new, A)
-        t = torch.where(ok[:, None], t_new, t)
-    inliers = w > 0.5
-    count = inliers.sum(-1)
-    success = (mask.sum(-1) >= 2) & (count >= 2)
-    return SimilarityResult(A, t, inliers & success[:, None],
-                            torch.where(success, count, 0).to(torch.int32),
-                            success)
+        # IRLS: refit on the inliers, re-select, repeat (cv2's post-RANSAC
+        # refinement). If a round leaves fewer than 2 inliers, the next refit's
+        # +1e-9 weights would fit all correspondences, outliers included, so
+        # that view keeps its previous carry.
+        for _ in range(4):
+            A_new, t_new = _solve_weighted(src, dst, w + 1e-9)
+            good = _inliers(src, dst, mask, A_new, t_new, threshold)
+            ok = good.sum(-1) >= 2
+            w = torch.where(ok[:, None], good.to(torch.float32), w)
+            A = torch.where(ok[:, None, None], A_new, A)
+            t = torch.where(ok[:, None], t_new, t)
+        inliers = w > 0.5
+        count = inliers.sum(-1)
+        success = (mask.sum(-1) >= 2) & (count >= 2)
+        return SimilarityResult(A, t, inliers & success[:, None],
+                                torch.where(success, count, 0).to(torch.int32),
+                                success)

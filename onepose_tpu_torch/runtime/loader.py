@@ -17,6 +17,8 @@ from typing import Callable, Dict, Iterator, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from onepose_tpu_torch.utils.profiling import span
+
 
 class PrefetchLoader:
     """Iterate batches of preprocessed frames with background prefetch.
@@ -75,7 +77,8 @@ def stage_ahead(batches: Iterator, stage_fn: Callable,
     max(upload, step) rather than their sum.
 
     Order-preserving; exceptions from ``stage_fn`` or the source iterator
-    re-raise at the consumption point.
+    re-raise at the consumption point. The consumer's wait for a staged
+    batch is the span ``loader.wait``.
     """
     out: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
     _end = object()
@@ -107,7 +110,8 @@ def stage_ahead(batches: Iterator, stage_fn: Callable,
     t.start()
     try:
         while True:
-            item = out.get()
+            with span("loader.wait"):
+                item = out.get()
             if item is _end:
                 break
             if isinstance(item, BaseException):
@@ -145,7 +149,8 @@ class DeviceStager:
     """A :func:`stage_ahead` staging function: a dict of numpy arrays →
     :class:`Staged` on ``device``. On a card the arrays are copied from
     pinned memory on a side stream, and an event is recorded after the
-    copies; elsewhere they are plain tensors."""
+    copies; elsewhere they are plain tensors. A call is the span
+    ``loader.stage``."""
 
     def __init__(self, device: torch.device | str):
         self.device = torch.device(device)
@@ -153,12 +158,14 @@ class DeviceStager:
                        if self.device.type == "cuda" else None)
 
     def __call__(self, batch: Dict[str, np.ndarray]) -> Staged:
-        if self.stream is None:
-            return Staged({k: torch.as_tensor(v, device=self.device)
-                           for k, v in batch.items()}, None)
-        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            tensors = {k: torch.as_tensor(v).pin_memory().to(
-                self.device, non_blocking=True) for k, v in batch.items()}
-            ready = torch.cuda.Event()
-            ready.record(self.stream)
-        return Staged(tensors, ready)
+        with span("loader.stage"):
+            if self.stream is None:
+                return Staged({k: torch.as_tensor(v, device=self.device)
+                               for k, v in batch.items()}, None)
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self.stream):
+                tensors = {k: torch.as_tensor(v).pin_memory().to(
+                    self.device, non_blocking=True) for k, v in batch.items()}
+                ready = torch.cuda.Event()
+                ready.record(self.stream)
+            return Staged(tensors, ready)
