@@ -5,16 +5,23 @@
 
 Builds the hand-written CUDA kernels from ``onepose_tpu_torch/csrc`` at
 first use (into ``build/onepose_tpu_torch/``, counted in this run's time)
-and runs nineteen phases; weights and inputs come from fixed seeds.
+and runs twenty phases; weights and inputs come from fixed seeds.
 
   1. card name and power limit (nvidia-smi);
   2. kernel build time, ptxas register use, and the count of tensor-core
      instructions (HGMMA) in each kernel's own SASS, which must not be 0
-     for the stem or the match kernel;
+     for the stem, the encoder or the match kernel;
   3. stem kernel vs its plain PyTorch version at [8,512,512,1] and at
      [2,64,128,1], max|Δ| < 1e-4·max(|ref|, 1), and both times; beside
      it the kernel's, plain fp32's and cuDNN-with-TF32's error against an
      fp64 reference, and the kernel's bound;
+  3e. SuperPoint's encoder kernel (its seven 3x3 convolutions after the
+     stem) vs its plain version (cuDNN fp32) at the encoder inputs of the
+     main paths, [128,256,256,64] (pose batch), [1,720,960,64] (detector
+     frame), [15,256,256,64] (DB views) and [1,256,256,64] (demo crop),
+     under the stem's gate; beside it the kernel's, plain fp32's and
+     cuDNN-with-TF32's error against fp64, both times, the bound and the
+     kernel's share of it, and its launches (7 a call);
   4. match kernel vs its plain version at [8,1024,256]x[8,2000,256] and
      ragged [2,1000,256]x[2,1990,256], each on random unit descriptors and
      on peaked ones (DB slots j < N1 hold noisy copies of query j), under
@@ -294,6 +301,14 @@ TRACKER_KEYS = {"track_ms_median", "track_ms_p90", "frames",
                 "r_err_deg_max", "t_err_cm_max", "breakdown", "device"}
 TRAIN_KEYS = {"light+host-leaf-sampling", "light+device-leaf-sampling",
               "+ staged uploads", "step-only ceiling", "device"}
+# phase 3e: the encoder kernel's inputs on the main paths (pose batch,
+# detector frame, DB views, demo crop), and SuperPoint's seven convolutions
+# after the stem as (Cin, Cout, pool)
+ENCODER_SHAPES = ((128, 256, 256, 64), (1, 720, 960, 64), (15, 256, 256, 64),
+                  (1, 256, 256, 64))
+ENCODER_WIDTHS = ((64, 64, False), (64, 64, True), (64, 128, False),
+                  (128, 128, True), (128, 128, False), (128, 128, False),
+                  (128, 512, False))
 # phase 19: the most match slots of the first 4 frames (4·K_PTS) that may
 # differ between batch 4 and batch 8, four times the 20 measured on an H100
 BATCH_ROWS_MAX_SLOTS = 80
@@ -435,7 +450,7 @@ class Smoke:
              str(path)], capture_output=True, text=True, timeout=300).stdout
         hgmma = hgmma_by_function(sass)
         self.results["sass_hgmma"] = hgmma
-        for kernel in ("stem_kernel", "match_pass"):
+        for kernel in ("stem_kernel", "encoder_conv", "match_pass"):
             n = sum(v for k, v in hgmma.items() if kernel in k)
             self.check(n > 0,
                        f"{kernel}: {n} HGMMA instructions in its own SASS")
@@ -492,6 +507,61 @@ class Smoke:
                    f"{errs64['cudnn_tf32']:.3e}; kernel {ms:.3f} ms, "
                    f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
                    f"({bound_by})  [{self.smi}]")
+
+    # -- 3e ---------------------------------------------------------------
+    def encoder(self):
+        for i, shape in enumerate(ENCODER_SHAPES):
+            self.encoder_case(shape, i)
+
+    def encoder_case(self, shape, seed):
+        """The encoder kernel vs plain at input ``shape`` (He-scaled random
+        weights of SuperPoint's widths), errors against fp64, both times,
+        the bound and the share, into results["encoder"]."""
+        from onepose_tpu_torch.ops import encoder
+        from onepose_tpu_torch.ops.precision import pin_fp32
+
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        x = torch.rand(shape, generator=g, device=self.dev)
+        layers = [encoder.Conv3x3(
+            torch.randn((3, 3, cin, cout), generator=g, device=self.dev)
+            * (2 / (9 * cin)) ** 0.5,
+            torch.randn(cout, generator=g, device=self.dev) * 0.1, pool)
+            for cin, cout, pool in ENCODER_WIDTHS]
+        before = encoder.encoder_conv.launches
+        got = encoder.encoder_conv(x, layers)
+        launches = encoder.encoder_conv.launches - before
+        ref = encoder.encoder_reference(x, layers)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        gate = STEM_TOL * max(float(ref.abs().max()), 1.0)
+        ref64 = encoder.encoder_reference(x.double(), [
+            encoder.Conv3x3(w.double(), b.double(), p) for w, b, p in layers])
+        try:
+            torch.backends.cudnn.allow_tf32 = True
+            tf32 = encoder.encoder_reference(x, layers)
+        finally:
+            pin_fp32()
+        errs64 = {k: float((v.double() - ref64).abs().max()) for k, v in
+                  (("kernel", got), ("plain_fp32", ref),
+                   ("cudnn_tf32", tf32))}
+        del ref64, tf32, got, ref
+        ms = cuda_ms(lambda: encoder.encoder_conv(x, layers))
+        plain_ms = cuda_ms(lambda: encoder.encoder_reference(x, layers))
+        bound_ms, bound_by = encoder_bound_ms(*shape[:3])
+        self.results.setdefault("encoder", {})[str(shape)] = {
+            "max_abs_err": err, "gate": gate, "err_vs_fp64": errs64,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+            "launches": launches}
+        self.check(launches == 7 and err < gate
+                   and errs64["kernel"] <= 2 * errs64["plain_fp32"],
+                   f"encoder {list(shape)}: {launches} launches, "
+                   f"max|d|={err:.3e} < {gate:.3e}; vs fp64: kernel "
+                   f"{errs64['kernel']:.3e}, plain fp32 "
+                   f"{errs64['plain_fp32']:.3e}, cuDNN TF32 "
+                   f"{errs64['cudnn_tf32']:.3e}; kernel {ms:.3f} ms, plain "
+                   f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+                   f"({bound_by}, {100 * bound_ms / ms:.1f}%)  [{self.smi}]")
 
     # -- 4 ----------------------------------------------------------------
     def match(self):
@@ -2902,7 +2972,7 @@ class Smoke:
         """19: does a frame's extraction and matching depend on the rows
         batched with it? Phase 7's models, DB and frames, fp32, the first 4
         frames at batch 4 and inside batch 8: every aten op's tensor
-        outputs (and the two kernels') fingerprinted by the sum of their
+        outputs (and the three kernels') fingerprinted by the sum of their
         bits, each 4-row output against the first half of its 8-row twin;
         the first op that differs, and how far apart the final outputs are
         (the bound the card gives; on the CPU both packages give the same
@@ -2924,7 +2994,9 @@ class Smoke:
         def traced(rows):
             trace = RowTrace()
             stem, match = superpoint.fused_stem, gats_spg.dual_softmax_argmax
+            enc = superpoint.encoder_conv
             superpoint.fused_stem = trace.wrap("fused_stem (kernel)", stem)
+            superpoint.encoder_conv = trace.wrap("encoder_conv (kernel)", enc)
             gats_spg.dual_softmax_argmax = trace.wrap(
                 "dual_softmax_argmax (kernel)", match)
             try:
@@ -2933,6 +3005,7 @@ class Smoke:
                     m = pipe.match(det)
             finally:
                 superpoint.fused_stem = stem
+                superpoint.encoder_conv = enc
                 gats_spg.dual_softmax_argmax = match
             torch.cuda.synchronize()
             return trace, (det.keypoints[:4], det.descriptors[:4],
@@ -2961,7 +3034,7 @@ class Smoke:
                    f"batch rows: the same {len(four.ops)} ops at 4 and 8 "
                    f"rows, {compared} compared; first difference: {first}")
         # the bound PERF.md states: the rows part at an aten op (cuDNN's
-        # algorithm by batch), never inside the two kernels, and the
+        # algorithm by batch), never inside the kernels, and the
         # matches by at most BATCH_ROWS_MAX_SLOTS of B/2·K_PTS slots
         self.check(first is None or "(kernel)" not in first,
                    f"batch rows: the first difference is not a kernel's "
@@ -2975,9 +3048,10 @@ class Smoke:
         mt = self.results.get("match", {}).get(
             f"[{B},{K_PTS},256]x[{B},{SHAPE3D},256] random", {})
         # launches of the main paths (every phase's that drives one)
+        en = self.results.get("encoder", {}).get(str(ENCODER_SHAPES[0]), {})
         launches = {k: sum(p.get(k, 0) for p in
                            self.results.get("launches", {}).values())
-                    for k in ("stem", "match")}
+                    for k in ("stem", "encoder", "match")}
         # no single PyTorch call computes either function (the stem is two
         # convs, two ReLUs and a pool; the match an einsum, two softmaxes
         # and two argmaxes), so library_ms is null
@@ -2989,6 +3063,15 @@ class Smoke:
              "max_abs_err": st.get("max_abs_err"), "ms": st.get("ms"),
              "plain_ms": st.get("plain_ms"), "bound_ms": st.get("bound_ms"),
              "bound_by": st.get("bound_by"), "library_ms": None},
+            # the plain version is cuDNN's fp32 chain, the library's
+            {"name": "encoder_conv", "route": "cuda",
+             "source": "onepose_tpu_torch/csrc/encoder.cu",
+             "replaces": None,
+             "launches": launches.get("encoder", 0),
+             "max_abs_err": en.get("max_abs_err"), "ms": en.get("ms"),
+             "plain_ms": en.get("plain_ms"), "bound_ms": en.get("bound_ms"),
+             "bound_by": en.get("bound_by"),
+             "library_ms": en.get("plain_ms")},
             {"name": "dual_softmax_argmax", "route": "cuda",
              "source": "onepose_tpu_torch/csrc/match.cu",
              "replaces": "onepose_tpu/ops/pallas_match.py:113",
@@ -3616,16 +3699,18 @@ class RowTrace(TorchDispatchMode):
 
 
 def launch_counts() -> dict:
-    from onepose_tpu_torch.ops import match, stem
+    from onepose_tpu_torch.ops import encoder, match, stem
 
     return {"stem": stem.fused_stem.launches,
+            "encoder": encoder.encoder_conv.launches,
             "match": match.dual_softmax_argmax.launches}
 
 
 def set_launch_counts(counts: dict) -> None:
-    from onepose_tpu_torch.ops import match, stem
+    from onepose_tpu_torch.ops import encoder, match, stem
 
     stem.fused_stem.launches = counts["stem"]
+    encoder.encoder_conv.launches = counts["encoder"]
     match.dual_softmax_argmax.launches = counts["match"]
 
 
@@ -3852,6 +3937,22 @@ def stem_bound_ms(b, h, w):
         "operations": max(3 * conv1b / PEAK_TF32, conv1a / PEAK_FP32)})
 
 
+def encoder_bound_ms(b, h, w):
+    """Least time of the encoder's seven convolutions on input [b,h,w,64]:
+    the larger of their bytes over HBM (each layer's input read once and
+    output written once, weights included) and their operations as three
+    TF32 products."""
+    ops = nbytes = 0
+    for cin, cout, pool in ENCODER_WIDTHS:
+        pix = b * h * w
+        ops += 2 * pix * 9 * cin * cout
+        if pool:
+            h, w = h // 2, w // 2
+        nbytes += 4 * (pix * cin + b * h * w * cout + 9 * cin * cout + cout)
+    return _bound({"bytes": nbytes / PEAK_BYTES,
+                   "operations": 3 * ops / PEAK_TF32})
+
+
 def match_bound_ms(b, n1, n2, d):
     """Least time of the dual-softmax argmax: S = d0 . d1^T as three TF32
     products, or reading the descriptors and writing two (index, max)
@@ -4020,6 +4121,7 @@ def main() -> int:
     phases = [
         ("1 card", smoke.card), ("2 kernel build", smoke.build),
         ("3 stem kernel vs plain", smoke.stem),
+        ("3e encoder kernel vs plain", smoke.encoder),
         ("4 match kernel vs plain", smoke.match),
         ("5 known-pose PnP on the card", smoke.known_pose),
         ("6 card vs CPU parity", smoke.parity),

@@ -48,6 +48,15 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
                : "memory");
 }
 
+// 16 bytes from src, or 16 zero bytes where !valid (src is then not read,
+// but must still be a valid address)
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

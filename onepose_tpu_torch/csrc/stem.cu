@@ -18,7 +18,8 @@
 // fp32 activations (537 MB each) would go to device memory and back.
 //
 // Design. A block takes kRows = 4 output rows x kTW = 64 columns of one
-// image (256 pixels, the M tile); two warpgroups own two rows each.
+// image (256 pixels, the M tile); two warpgroups own two rows each. Steps
+// 2, 4 and 5 are conv3x3.cuh's, which encoder.cu shares.
 //  1. The input tile with a 2-px halo goes to shared memory, then conv1a +
 //     bias + ReLU (fp32 FMA, 1.5% of the work) on the 6 x 66 tile with a
 //     1-px halo, stored as [cin/4][pixel][4] floats (pixel = row * 66 +
@@ -65,129 +66,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "conv3x3.cuh"
 
 namespace {
 
-using namespace hopper;
+using namespace conv3x3;
 
-constexpr int kC = 64;               // channels of conv1a and conv1b
-constexpr int kTW = 64;              // output columns a block: wgmma's M
-constexpr int kRows = 4;             // output rows a block: 2 a warpgroup
-constexpr int kAW = kTW + 2;         // conv1a tile (1-px halo)
-constexpr int kAH = kRows + 2;
-constexpr int kAP = kAW * kAH;       // conv1a tile pixels
 constexpr int kIW = kTW + 4;         // input tile (2-px halo)
 constexpr int kIH = kRows + 4;
-constexpr int kThreads = 256;
-constexpr int kQuads = kC / 4;       // channel quads
-constexpr int kTapFloats = kC * kC;
-constexpr int kWPer = kTapFloats / kThreads;  // weights a thread stages a tap
-constexpr int kHalfBytes = kTapFloats * 4;    // hi (or lo) of one tap
-constexpr int kStageBytes = 2 * kHalfBytes;
 
 constexpr int kOffW = 0;                                // [2][hi, lo][16][64][4]
 constexpr int kOffA = kOffW + 2 * kStageBytes;          // [16][kAP][4]
-constexpr int kOffIn = kOffA + kQuads * kAP * 16;       // [kIH][kIW]
+constexpr int kOffIn = kOffA + kTileBytes;              // [kIH][kIW]
 constexpr int kOffW1a = kOffIn + kIH * kIW * 4;         // [9][64]
 constexpr int kOffB1a = kOffW1a + 9 * kC * 4;           // [64]
 constexpr int kSmemBytes = kOffB1a + kC * 4;
 static_assert(kSmemBytes == 171648, "the source note states this size");
-
-// d[32] (+)= A[64 x 8] . B[64 x 8]^T, A tf32 in registers (wgmma's fragment:
-// a0 (row lane/4, col lane%4), a1 row + 8, a2 col + 4, a3 both, rows
-// 16 * warp on), B by descriptor, fp32 accumulator.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t b,
-                                         int accumulate = 1) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
-// This thread's 16 weights of tap t: cin quad q = idx / 64, cout idx % 64
-// for idx = tid + 256 * it; a warp reads 32 consecutive couts.
-__device__ __forceinline__ void load_tap(const float* __restrict__ w1b,
-                                         int t, float (&w)[kWPer]) {
-  const float* src = w1b + t * kTapFloats;
-#pragma unroll
-  for (int it = 0; it < kWPer / 4; ++it) {
-    const int idx = it * kThreads + threadIdx.x;
-    const int q = idx / kC, co = idx % kC;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) w[4 * it + e] = __ldg(src + (4 * q + e) * kC + co);
-  }
-}
-
-// Their hi and lo into one stage, [cin/4][cout][4] each.
-__device__ __forceinline__ void store_tap(const float (&w)[kWPer],
-                                          float4* stage) {
-#pragma unroll
-  for (int it = 0; it < kWPer / 4; ++it) {
-    const int idx = it * kThreads + threadIdx.x;  // == q * 64 + co
-    float4 hi, lo;
-    hi.x = tf32_round(w[4 * it + 0]);
-    hi.y = tf32_round(w[4 * it + 1]);
-    hi.z = tf32_round(w[4 * it + 2]);
-    hi.w = tf32_round(w[4 * it + 3]);
-    lo.x = tf32_round(w[4 * it + 0] - hi.x);
-    lo.y = tf32_round(w[4 * it + 1] - hi.y);
-    lo.z = tf32_round(w[4 * it + 2] - hi.z);
-    lo.w = tf32_round(w[4 * it + 3] - hi.w);
-    stage[idx] = hi;
-    stage[kTapFloats / 4 + idx] = lo;
-  }
-}
-
-// Half a group's A fragments, k-steps 4 h .. 4 h + 3, split into hi and lo.
-// Rows: pixels m and m + 8 of the row, m = 16 warp + lane / 4; columns:
-// cin 8 kk + lane % 4 (plane 2 kk) and + 4 (plane 2 kk + 1). `a` points at
-// pixel m of the row, tap's shift included, plane 0, element lane % 4.
-struct Frags {
-  uint32_t hi[4][4], lo[4][4];
-};
-
-__device__ __forceinline__ void load_frags(const float* a, int h, Frags& f) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int kk = 4 * h + k;
-      const float x = a[((2 * kk + (r >> 1)) * kAP + 8 * (r & 1)) * 4];
-      const float hi = tf32_round(x);
-      f.hi[k][r] = __float_as_uint(hi);
-      f.lo[k][r] = __float_as_uint(tf32_round(x - hi));
-    }
-}
-
-// part (+)= the half's lo.hi + hi.lo + hi.hi against the weights of the
-// stage at `st`; half 0 starts the sum afresh.
-__device__ __forceinline__ void issue_half(float (&part)[32], const Frags& f,
-                                           uint32_t st, int h) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    // cin quads 2 kk and 2 kk + 1, 1 KB apart (LBO); couts 8 by 8, 128 B
-    // apart (SBO)
-    const uint32_t k_off = (4 * h + k) * 2 * kC * 16;
-    const uint64_t b_hi = smem_desc(st + k_off, kC * 16, 128, kNoSwizzle);
-    const uint64_t b_lo =
-        smem_desc(st + kHalfBytes + k_off, kC * 16, 128, kNoSwizzle);
-    wgmma_rs(part, f.lo[k], b_hi, h > 0 || k > 0);
-    wgmma_rs(part, f.hi[k], b_lo);
-    wgmma_rs(part, f.hi[k], b_hi);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads, 1)
 stem_kernel(const float* __restrict__ img, const float* __restrict__ w1a,
@@ -210,7 +104,7 @@ stem_kernel(const float* __restrict__ img, const float* __restrict__ w1a,
   const float* im = img + static_cast<size_t>(b) * H * W;
 
   float wreg[kWPer];
-  load_tap(w1b, 0, wreg);
+  load_tap(w1b, kC, wreg);
   for (int i = tid; i < kIH * kIW; i += kThreads) {
     const int r = y0 - 2 + i / kIW;
     const int c = x0 - 2 + i % kIW;
@@ -267,16 +161,16 @@ stem_kernel(const float* __restrict__ img, const float* __restrict__ w1a,
   load_frags(a_at(0, 0), 0, f0);
 
   for (int tap = 0; tap < 9; ++tap) {
-    if (tap + 1 < 9) load_tap(w1b, tap + 1, wreg);
+    if (tap + 1 < 9) load_tap(w1b + (tap + 1) * kTapFloats, kC, wreg);
     const uint32_t st = w_base + (tap & 1) * kStageBytes;
 #pragma unroll
     for (int ry = 0; ry < 2; ++ry) {
       wgmma_fence();
-      issue_half(part, f0, st, 0);
+      issue_half(part, f0, st, 0, true);
       wgmma_commit();
       load_frags(a_at(tap, ry), 1, f1);
       wgmma_fence();
-      issue_half(part, f1, st, 1);
+      issue_half(part, f1, st, 1, false);
       wgmma_commit();
       wgmma_wait<1>();  // the first half has left the MMA: f0 is free
       const int next = ry ? tap + 1 : tap;
@@ -294,30 +188,10 @@ stem_kernel(const float* __restrict__ img, const float* __restrict__ w1a,
     }
   }
 
-  // Accumulator element 4 n + 2 i + j: pixel m + 8 i, cout 8 n + 2 kq + j.
   const int H2 = H / 2, W2 = W / 2;
   const int oy = y0 / 2 + wg;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int ox = (x0 + m + 8 * i) / 2;
-    const bool store = ((lane >> 2) & 1) == 0 && oy < H2 && ox < W2;
-    float* o = out + ((static_cast<size_t>(b) * H2 + oy) * W2 + ox) * kC;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      float v[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int e = 4 * n + 2 * i + j;
-        v[j] = fmaxf(acc[0][e], acc[1][e]);
-        v[j] = fmaxf(v[j], __shfl_xor_sync(0xffffffffu, v[j], 4));
-      }
-      const int co = 8 * n + 2 * kq;
-      if (store)
-        *reinterpret_cast<float2*>(o + co) =
-            make_float2(fmaxf(v[0] + __ldg(b1b + co), 0.f),
-                        fmaxf(v[1] + __ldg(b1b + co + 1), 0.f));
-    }
-  }
+  store_pooled(acc, b1b, out + (static_cast<size_t>(b) * H2 + oy) * W2 * kC,
+               kC, x0, W2, oy < H2);
 }
 
 }  // namespace

@@ -6,13 +6,15 @@ two-round max-pool NMS, threshold and border masks, a static top-K with
 the lower index winning ties, and bilinear descriptor sampling. Every
 image yields exactly ``max_keypoints`` slots with a validity mask.
 
-Images come in NHWC ``[B, H, W, 1]`` as in the JAX package; the encoder
-runs NCHW inside. In fp32 (the default) the stem (conv1a, conv1b, pool)
-goes through ``ops.stem.fused_stem``: the hand-written kernel on a CUDA
-tensor, its plain version on a CPU one. ``stem_dtype="bfloat16"`` runs the
-stem's convolutions in bf16, and ``compute_dtype="bfloat16"`` the whole
-encoder, with ``F.conv2d`` as the JAX package runs XLA convolutions there
-(no Pallas kernel computes in bf16). The JAX package's polyphase stem and
+Images come in NHWC ``[B, H, W, 1]`` as in the JAX package. In fp32 (the
+default) the stem (conv1a, conv1b, pool) goes through
+``ops.stem.fused_stem`` and the seven 3x3 convolutions after it (conv2a to
+conv4b and the heads' first, convPa|convDa as one) through
+``ops.encoder.encoder_conv``, NHWC: the hand-written kernels on a CUDA
+tensor, their plain versions on a CPU one. ``stem_dtype="bfloat16"`` runs
+the stem's convolutions in bf16, and ``compute_dtype="bfloat16"`` the whole
+encoder, NCHW, with ``F.conv2d`` as the JAX package runs XLA convolutions
+there (no Pallas kernel computes in bf16). The JAX package's polyphase stem and
 two-stage top-k are TPU reformulations of the same math and are not
 ported: ``stem="polyphase"`` computes the direct stem.
 """
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from onepose_tpu_torch.ops.encoder import Conv3x3, encoder_conv
 from onepose_tpu_torch.ops.stem import fused_stem
 from onepose_tpu_torch.utils.profiling import span
 
@@ -52,6 +55,10 @@ ENCODER_CHANNELS = [
     ("conv3a", 64, 128), ("conv3b", 128, 128), ("pool",),
     ("conv4a", 128, 128), ("conv4b", 128, 128),
 ]
+# the fp32 encoder's convolutions after the stem (ops/encoder.py), each
+# with whether the 2x2 max-pool follows it
+ENCODER_CONVS = [("conv2a", False), ("conv2b", True), ("conv3a", False),
+                 ("conv3b", True), ("conv4a", False), ("conv4b", False)]
 HEADS = [("convPa", 128, 256, 3), ("convPb", 256, 65, 1),
          ("convDa", 128, 256, 3)]
 
@@ -107,8 +114,21 @@ def entry_preset(cfg) -> dict:
                                          "bfloat16" if bf16 else "float32"))}
 
 
-def _hwio(conv: nn.Conv2d) -> torch.Tensor:
-    return conv.weight.permute(2, 3, 1, 0).contiguous()
+def _hwio(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW → HWIO, contiguous."""
+    return weight.permute(2, 3, 1, 0).contiguous()
+
+
+def encoder_layers(model: SuperPoint) -> list:
+    """The fp32 encoder's seven 3x3 convolutions after the stem, as
+    ``ops.encoder`` takes them: conv2a to conv4b, then convPa and convDa as
+    one 128→512 convolution (both heads read the same trunk output)."""
+    w_heads = torch.cat([model.convPa.weight, model.convDa.weight])
+    b_heads = torch.cat([model.convPa.bias, model.convDa.bias])
+    return [Conv3x3(_hwio(getattr(model, name).weight),
+                    getattr(model, name).bias, pool)
+            for name, pool in ENCODER_CONVS] + [
+        Conv3x3(_hwio(w_heads), b_heads, False)]
 
 
 def _conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -134,7 +154,8 @@ def dense_heads(model: SuperPoint, images: torch.Tensor,
     images [B, H, W, 1] in [0, 1], H and W divisible by 8 → (scores
     [B, H, W], desc_coarse [B, H/8, W/8, D] unit norm), both fp32.
 
-    The JAX package's ``dense_heads`` modes: all fp32 (the stem kernel);
+    The JAX package's ``dense_heads`` modes: all fp32 (the stem and
+    encoder kernels);
     ``stem_dtype="bfloat16"`` under an fp32 encoder (the stem's convs and
     pool in bf16, cast to fp32); ``compute_dtype="bfloat16"`` (weights and
     images in bf16, the stem kernel skipped, the detector logits and the
@@ -146,24 +167,29 @@ def dense_heads(model: SuperPoint, images: torch.Tensor,
     sdt = _dtype(cfg, "stem_dtype") if cdt == torch.float32 else cdt
     with span("extract.stem"):
         if sdt == torch.float32:
-            x = fused_stem(images.float(), _hwio(model.conv1a),
-                           model.conv1a.bias, _hwio(model.conv1b),
-                           model.conv1b.bias).permute(0, 3, 1, 2)
+            x = fused_stem(images.float(), _hwio(model.conv1a.weight),
+                           model.conv1a.bias, _hwio(model.conv1b.weight),
+                           model.conv1b.bias)
         else:   # the direct stem in bf16
             x = images.permute(0, 3, 1, 2).to(sdt)
             x = _relu_conv(_relu_conv(x, model.conv1a), model.conv1b)
             x = F.max_pool2d(x, 2).to(cdt)
+            if cdt == torch.float32:
+                x = x.permute(0, 2, 3, 1).contiguous()
     with span("extract.encoder"):
-        for entry in ENCODER_CHANNELS[3:]:
-            if entry[0] == "pool":
-                x = F.max_pool2d(x, 2)
-            else:
-                x = _relu_conv(x, getattr(model, entry[0]))
-
-        # both heads' first convs read the same trunk output: one 128→512 conv
-        w_heads = torch.cat([model.convPa.weight, model.convDa.weight])
-        b_heads = torch.cat([model.convPa.bias, model.convDa.bias])
-        heads = F.relu(_conv(x, w_heads, b_heads, 1))
+        if cdt == torch.float32:
+            heads = encoder_conv(x, encoder_layers(model)).permute(0, 3, 1, 2)
+        else:
+            for entry in ENCODER_CHANNELS[3:]:
+                if entry[0] == "pool":
+                    x = F.max_pool2d(x, 2)
+                else:
+                    x = _relu_conv(x, getattr(model, entry[0]))
+            # both heads' first convs read the same trunk output: one
+            # 128→512 conv
+            w_heads = torch.cat([model.convPa.weight, model.convDa.weight])
+            b_heads = torch.cat([model.convPa.bias, model.convDa.bias])
+            heads = F.relu(_conv(x, w_heads, b_heads, 1))
         cpa, cda = heads[:, :256], heads[:, 256:]
         logits = _conv(cpa, model.convPb.weight, model.convPb.bias, 0)
         desc = _conv(cda, model.convDb.weight, model.convDb.bias, 0)

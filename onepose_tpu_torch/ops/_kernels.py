@@ -29,6 +29,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "stem_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "match_forward": [_P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P],
+    "encoder_conv_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

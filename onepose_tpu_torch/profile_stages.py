@@ -66,8 +66,8 @@ def run(batch: int = 8, hw: int = 512, max_keypoints: int = 1024,
         log(f"{name:40s} {ms:8.2f} ms/batch-{B}")
 
     # --- SuperPoint pieces ---
-    stem_w = [superpoint._hwio(sp.conv1a), sp.conv1a.bias,
-              superpoint._hwio(sp.conv1b), sp.conv1b.bias]
+    stem_w = [superpoint._hwio(sp.conv1a.weight), sp.conv1a.bias,
+              superpoint._hwio(sp.conv1b.weight), sp.conv1b.bias]
     report("sp stem (conv1a+1b+pool)",
            lambda: fused_stem(img, stem_w[0], stem_w[1], stem_w[2],
                               stem_w[3]))

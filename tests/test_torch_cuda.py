@@ -7,9 +7,10 @@ JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerances: the stem within the fused-stem gate's max|Δ| < 1e-4·max(|ref|,
-1) (3xTF32 on the tensor cores, fp32-class), and its error against an fp64
-reference at most twice cuDNN fp32's (TF32 off); the match kernel under
+Tolerances: the stem and the encoder's convolutions within the fused-stem
+gate's max|Δ| < 1e-4·max(|ref|, 1) (3xTF32 on the tensor cores,
+fp32-class), and their error against an fp64 reference at most twice
+cuDNN fp32's (TF32 off); the match kernel under
 ``match.match_gate``: each max conf within GATE_REL = 3e-5 of the plain
 max of its row or column, indices equal except in relative near-ties
 (fp32-class products agree to about 1e-5, TF32 ones do not); the serve
@@ -29,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from onepose_tpu_torch.ops import match, stem
+from onepose_tpu_torch.ops import encoder, match, stem
 from onepose_tpu_torch.ops.precision import pin_fp32
 
 pytestmark = pytest.mark.cuda
@@ -98,6 +99,103 @@ def test_stem_wrapper_refuses_bad_input(cuda):
         stem.fused_stem(args[0].double(), *args[1:])
     with pytest.raises(ValueError, match="contiguous"):
         stem.fused_stem(args[0].transpose(1, 2), *args[1:])
+
+
+# SuperPoint's seven convolutions after the stem: (Cin, Cout, pool)
+ENCODER_WIDTHS = [(64, 64, False), (64, 64, True), (64, 128, False),
+                  (128, 128, True), (128, 128, False), (128, 128, False),
+                  (128, 512, False)]
+
+
+def _encoder_args(seed, shape, dev):
+    """An input like the stem's output (non-negative) and He-scaled random
+    weights of the encoder's widths."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(shape, generator=g, device=dev)
+    layers = [encoder.Conv3x3(
+        torch.randn((3, 3, cin, cout), generator=g, device=dev)
+        * (2 / (9 * cin)) ** 0.5,
+        torch.randn(cout, generator=g, device=dev) * 0.1, pool)
+        for cin, cout, pool in ENCODER_WIDTHS]
+    return x, layers
+
+
+# the main path's shapes: the pose batch of 128 crops, the detector's frame
+# (its 480 and 240 columns are not a multiple of the kernel's 64), the DB
+# views and the demo's crop
+ENCODER_MAIN_SHAPES = [(128, 256, 256, 64), (1, 720, 960, 64),
+                       (15, 256, 256, 64), (1, 256, 256, 64)]
+
+
+@pytest.mark.parametrize("shape", ENCODER_MAIN_SHAPES + [(2, 20, 132, 64),
+                                                         (1, 4, 4, 64)])
+def test_encoder_kernel_matches_plain(cuda, shape):
+    """Within the stem's gate of the plain version (cuDNN fp32); one launch
+    a convolution; ragged tiles down to a 1x1 map."""
+    x, layers = _encoder_args(0, shape, cuda)
+    before = encoder.encoder_conv.launches
+    got = encoder.encoder_conv(x, layers)
+    assert encoder.encoder_conv.launches == before + 7
+    ref = encoder.encoder_reference(x, layers)
+    assert got.shape == ref.shape == (shape[0], shape[1] // 4,
+                                      shape[2] // 4, 512)
+    err = float((got - ref).abs().max())
+    assert err < 1e-4 * max(float(ref.abs().max()), 1.0), err
+
+
+@pytest.mark.parametrize("shape", ENCODER_MAIN_SHAPES)
+def test_encoder_kernel_is_fp32_class(cuda, shape):
+    """Against an fp64 reference the kernel errs at most twice as much as
+    cuDNN's fp32 convolutions with TF32 off, at the main path's shapes.
+    (Where a convolution sums only a few terms, as at a 1x1 map, the hi/lo
+    split's 22 bits, not the sums, set the kernel's error: a few times
+    fp32 FMA's, far inside the gate above.)"""
+    x, layers = _encoder_args(0, shape, cuda)
+    ref64 = encoder.encoder_reference(x.double(), [
+        encoder.Conv3x3(w.double(), b.double(), p) for w, b, p in layers])
+    kernel = float((encoder.encoder_conv(x, layers).double() - ref64)
+                   .abs().max())
+    plain = float((encoder.encoder_reference(x, layers).double() - ref64)
+                  .abs().max())
+    assert kernel <= 2 * plain, (kernel, plain)
+
+
+def test_encoder_rows_do_not_depend_on_the_batch(cuda):
+    """A frame's encoder output is the same bits at batch 4 and inside
+    batch 8: the kernel's tiles never cross images."""
+    x, layers = _encoder_args(1, (8, 64, 64, 64), cuda)
+    four = encoder.encoder_conv(x[:4].contiguous(), layers)
+    eight = encoder.encoder_conv(x, layers)
+    assert torch.equal(four, eight[:4])
+
+
+def test_extract_launches_the_encoder_seven_times(cuda):
+    """fp32 ``extract`` takes the kernel for all seven 3x3 convolutions;
+    the bf16 encoder takes none."""
+    from onepose_tpu_torch.models import superpoint
+
+    torch.manual_seed(0)
+    model = superpoint.SuperPoint().to(cuda).eval()
+    images = torch.rand(2, 64, 64, 1, device=cuda)
+    before = encoder.encoder_conv.launches
+    superpoint.extract(model, images, {"max_keypoints": 64})
+    assert encoder.encoder_conv.launches == before + 7
+    superpoint.extract(model, images, {"max_keypoints": 64,
+                                       "compute_dtype": "bfloat16",
+                                       "stem_dtype": "bfloat16"})
+    assert encoder.encoder_conv.launches == before + 7
+
+
+def test_encoder_wrapper_refuses_bad_input(cuda):
+    x, layers = _encoder_args(2, (1, 16, 16, 64), cuda)
+    with pytest.raises(ValueError, match="Cin in"):
+        encoder.encoder_conv(x[..., :32].contiguous(), layers)
+    with pytest.raises(ValueError, match="even"):
+        encoder.encoder_conv(x[:, :15, :15].contiguous(), layers[1:2])
+    with pytest.raises(ValueError, match="float32"):
+        encoder.encoder_conv(x.double(), layers)
+    with pytest.raises(ValueError, match="contiguous"):
+        encoder.encoder_conv(x.transpose(1, 2), layers)
 
 
 def _unit(rng, shape, dev):
