@@ -26,7 +26,10 @@ and runs twenty phases; weights and inputs come from fixed seeds.
      ragged [2,1000,256]x[2,1990,256], each on random unit descriptors and
      on peaked ones (DB slots j < N1 hold noisy copies of query j), under
      ``match.match_gate``: max conf within 3e-5 of plain, relative, and
-     indices equal except in relative near-ties;
+     indices equal except in relative near-ties; and at LoFTR's coarse
+     match in the detector, [15,4096,256]x[15,43200,256] at scale 25.6
+     on peaked descriptors of norm 16, gated a view at a time; each with
+     its launches (1 a call), both times, the bound and the share of it;
   5. known-pose RANSAC-PnP on the card (the scene of
      tests/test_pipeline.py::test_poses_from_matches_synthetic);
   6. card vs CPU run of the whole pipeline at B=2, 128x128, K=256,
@@ -229,6 +232,9 @@ POSE_DEG, POSE_CM = 0.5, 0.5
 PARITY_DEG, PARITY_CM = 0.05, 0.05   # card vs CPU pose agreement
 
 B, H, W, K_PTS, SHAPE3D, LEAF, HYP = 8, 512, 512, 1024, 2000, 8, 512
+# LoFTR's coarse match in the detector: 15 views' 64x64 cells against a
+# 1440x1920 frame's 180x240, at d·T = 256·0.1
+LOFTR_MATCH, LOFTR_SCALE = (15, 4096, 43200), 25.6
 KMAT = np.array([[460.0, 0, W / 2], [0, 460.0, H / 2], [0, 0, 1]],
                 np.float32)
 N_OBJECTS = 8                      # resident objects of phase 8
@@ -568,12 +574,18 @@ class Smoke:
         for b, n1, n2 in ((B, K_PTS, SHAPE3D), (2, 1000, 1990)):
             for kind in ("random", "peaked"):
                 self.match_case(b, n1, n2, kind)
+        # LoFTR's coarse match in the detector: descriptors of LayerNorm's
+        # norm, sqrt(256), at LoFTR's scale d·T (S = 10 for a self-match)
+        self.match_case(*LOFTR_MATCH, "peaked", scale=LOFTR_SCALE,
+                        norm=16.0)
 
-    def match_case(self, b, n1, n2, kind):
-        """The match kernel vs plain on unit descriptors [b,n1,256] x
-        [b,n2,256], random or peaked (DB slots j < n1 noisy copies of
-        query j), under ``match_gate``, with both times and the bound,
-        into results["match"]."""
+    def match_case(self, b, n1, n2, kind, scale=0.07, norm=1.0):
+        """The match kernel vs plain on descriptors of norm ``norm``
+        [b,n1,256] x [b,n2,256] at ``scale``, random or peaked (DB slots
+        j < n1 noisy copies of query j), under ``match_gate`` (a block of
+        elements at a time, so that the plain conf matrix stays within
+        2^30 entries), with its launches a call, both times and the
+        bound, into results["match"]."""
         from onepose_tpu_torch.ops import match
 
         rng = np.random.default_rng(1)
@@ -581,25 +593,36 @@ class Smoke:
         d1 = unit(rng.normal(size=(b, n2, 256)))
         if kind == "peaked":
             d1[:, :n1] = unit(d0 + 0.05 * rng.normal(size=d0.shape))
-        d0, d1 = (torch.from_numpy(x).to(self.dev) for x in (d0, d1))
-        got = match.dual_softmax_argmax(d0, d1, 0.07)
+        d0, d1 = (torch.from_numpy(x * np.float32(norm)).to(self.dev)
+                  for x in (d0, d1))
+        before = match.dual_softmax_argmax.launches
+        got = match.dual_softmax_argmax(d0, d1, scale)
+        launches = match.dual_softmax_argmax.launches - before
         torch.cuda.synchronize()
-        gate = match.match_gate(got, d0, d1, 0.07)
-        ms = cuda_ms(lambda: match.dual_softmax_argmax(d0, d1, 0.07))
-        plain_ms = cuda_ms(lambda: match.match_reference(d0, d1, 0.07))
+        step = max(1, (1 << 30) // (n1 * n2))
+        blocks = [slice(a, a + step) for a in range(0, b, step)]
+        gate = merge_gates([match.match_gate(
+            tuple(t[s] for t in got), d0[s], d1[s], scale) for s in blocks])
+        ms = cuda_ms(lambda: match.dual_softmax_argmax(d0, d1, scale))
+        plain_ms = cuda_ms(lambda: [match.match_reference(
+            d0[s], d1[s], scale) for s in blocks])
         bound_ms, bound_by = match_bound_ms(b, n1, n2, 256)
         key = f"[{b},{n1},256]x[{b},{n2},256] {kind}"
+        if scale != 0.07:
+            key += f" scale {scale}"
         self.results.setdefault("match", {})[key] = {
-            **dataclasses.asdict(gate), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
-        self.check(gate.ok,
-                   f"match {key}: max rel err {gate.max_rel_err:.3e} "
+            **dataclasses.asdict(gate), "launches": launches, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms}
+        self.check(gate.ok and launches == 1,
+                   f"match {key}: {launches} launch(es), max rel err "
+                   f"{gate.max_rel_err:.3e} "
                    f"(gate {match.GATE_REL:.0e}), index mismatches "
                    f"outside near-ties {gate.bad_idx} (all "
                    f"{gate.idx_diff}, near-tie rows+cols "
                    f"{gate.near_ties}); kernel {ms:.3f} ms, plain "
                    f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-                   f"({bound_by})  [{self.smi}]")
+                   f"({bound_by}, {100 * bound_ms / ms:.1f}%)  [{self.smi}]")
 
     # -- 5 ----------------------------------------------------------------
     def known_pose(self):
@@ -4063,6 +4086,17 @@ def planted_world(det, kmat, poses, rng, per_frame, leaf):
     gats = plant_gats_spg(convert.init_gats_spg_params(rng),
                           descs.mean(0).astype(np.float32))
     return db, gats
+
+
+def merge_gates(gates):
+    """One ``match.GateResult`` of several blocks' gates: ok if all are,
+    the largest errors and the summed counts."""
+    from onepose_tpu_torch.ops import match
+
+    return match.GateResult(
+        all(g.ok for g in gates), max(g.max_rel_err for g in gates),
+        max(g.max_abs_err for g in gates), sum(g.idx_diff for g in gates),
+        sum(g.near_ties for g in gates), sum(g.bad_idx for g in gates))
 
 
 def unit(x):

@@ -1,7 +1,9 @@
 """Feature-matching 2D object detector, on one device.
 
 Port of ``onepose_tpu/detector.py``: detect the object in a full query
-frame by SuperGlue-matching it against ``n_ref_view`` database views,
+frame by SuperGlue-matching it against ``n_ref_view`` database views
+(:class:`LocalFeatureObjectDetector`), or by LoFTR's detector-free
+matching against them (:class:`LoFTRObjectDetector`),
 estimate a similarity transform per view, warp the view's corners into the
 query to get a bounding box and keep the box with the most inliers; or
 project the 3D box with the previous pose.
@@ -12,6 +14,11 @@ of the full frame (its stem through the fused stem kernel on a card), one
 SuperGlue forward over all views (views are the batch dimension, the query
 broadcast to each) and one batched similarity RANSAC. Only the final box
 and the crop (cv2) run on the host.
+
+With LoFTR the views' backbone runs once, when the detector is built;
+per query frame ``models/loftr.Matcher`` gives every view a static slate
+over its coarse cells (the mutual coarse matches, their refined frame
+points), and the same batched similarity RANSAC and box follow.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from onepose_tpu_torch.models import superglue, superpoint
+from onepose_tpu_torch.models import loftr, superglue, superpoint
 from onepose_tpu_torch.ops import similarity
 from onepose_tpu_torch.ops.precision import pin_fp32
 from onepose_tpu_torch.sfm.extract import CONFS
@@ -204,3 +211,65 @@ class LocalFeatureObjectDetector:
         crop, K_crop = crop_img_by_bbox(img_u8, bbox, K, crop_size)
         return DetectResult(bbox, crop.astype(np.float32) / 255.0,
                             K_crop, -1)
+
+
+class LoFTRObjectDetector:
+    """The detector with LoFTR as its matcher: the views' backbone, tokens
+    and fine windows are computed once, on ``device``; per query frame one
+    :class:`loftr.Matcher` call (all views as the batch) and the batched
+    similarity RANSAC on the [n_views, view cells] slates, view cell →
+    refined frame point. ``box``, ``detect`` and
+    ``previous_pose_detect`` are :class:`LocalFeatureObjectDetector`'s.
+    The device is the card unless the caller names another; without a
+    card the default raises."""
+
+    def __init__(self, loftr_model: loftr.LoFTR,
+                 db_images: Sequence[np.ndarray],
+                 device: torch.device | str = "cuda"):
+        """db_images: grayscale [H, W] float arrays in [0, 1] (the sampled
+        reference views), H and W divisible by 8."""
+        pin_fp32()
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("LoFTRObjectDetector: no CUDA device; pass "
+                               "device='cpu' to run on the CPU")
+        db_stack = torch.as_tensor(
+            np.stack([np.asarray(im, np.float32) for im in db_images]),
+            device=self.device)[:, None]
+        self.db_shape = tuple(db_stack.shape[2:])  # (H, W)
+        self.n_views = db_stack.shape[0]
+        self.matcher = loftr.Matcher(loftr_model.to(self.device).eval(),
+                                     db_stack)
+
+    def match(self, query_img: np.ndarray) -> loftr.Matches:
+        """query_img [H, W] → LoFTR's slates against every view."""
+        return self.matcher(torch.as_tensor(
+            np.asarray(query_img, np.float32), device=self.device)[None, None])
+
+    def fit(self, matches: loftr.Matches,
+            noise: Optional[torch.Tensor] = None,
+            generator: Optional[torch.Generator] = None
+            ) -> similarity.SimilarityResult:
+        """Similarity RANSAC per view on its (view cell → refined frame
+        point) matches."""
+        return similarity.ransac_similarity(
+            matches.points0, matches.points1, matches.valid,
+            threshold=SIMILARITY_THRESHOLD, noise=noise, generator=generator)
+
+    @torch.no_grad()
+    def detect_bbox(self, query_img: np.ndarray,
+                    noise: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None):
+        """query_img [H, W] grayscale in [0, 1] → (bbox [4], inliers).
+
+        RANSAC's sampling noise [n_views, 256, view cells] is ``noise``
+        when given, else drawn from ``generator`` (on the detector's
+        device), else from a generator seeded 0."""
+        if noise is None and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        fits = self.fit(self.match(query_img), noise, generator)
+        return self.box(fits, query_img.shape[:2])
+
+    box = LocalFeatureObjectDetector.box
+    detect = LocalFeatureObjectDetector.detect
+    previous_pose_detect = LocalFeatureObjectDetector.previous_pose_detect

@@ -12,7 +12,10 @@ and write 512x512 crops to ``color_det/`` and cropped intrinsics to
         +experiment=object_detector
 
 The config key ``device`` names the torch device (default ``cuda``; there
-is no quiet CPU fallback).
+is no quiet CPU fallback). ``detector_matcher`` selects the matcher:
+``superglue`` (the default: SuperPoint keypoints and SuperGlue, from
+``model.extractor_model_path`` and ``model.matching_model_path``) or
+``loftr`` (detector-free LoFTR, from ``model.loftr_model_path``).
 """
 from __future__ import annotations
 
@@ -42,11 +45,41 @@ def sample_ref_views(sfm_model_dir, detection, matching, n_ref_view):
     return [images[ids[i]].name for i in range(0, len(ids), gap)]
 
 
-def detect_sequence(cfg, seq_dir, sfm_model_dir, sp_model, sg_model):
-    import cv2
+def load_matcher(cfg):
+    """The matcher that ``detector_matcher`` selects: (SuperGlue, None)
+    for ``superglue``, (None, LoFTR) for ``loftr``."""
+    from onepose_tpu_torch.utils import model_io
+
+    kind = cfg.get("detector_matcher", "superglue")
+    if kind == "loftr":
+        return None, model_io.load_loftr(cfg.model.loftr_model_path)
+    if kind != "superglue":
+        raise ValueError(f"detector_matcher: {kind!r} is neither "
+                         "'superglue' nor 'loftr'")
+    return model_io.load_superglue(cfg.model.matching_model_path), None
+
+
+def make_detector(cfg, db_images, sp_model=None, sg_model=None,
+                  loftr_model=None):
+    """The detector over ``db_images`` on ``cfg.device``: LoFTR's when
+    ``loftr_model`` is given, else SuperPoint + SuperGlue's."""
     import torch
 
-    from onepose_tpu_torch.detector import LocalFeatureObjectDetector
+    from onepose_tpu_torch import detector
+
+    device = torch.device(cfg.get("device", "cuda"))
+    if loftr_model is not None:
+        return detector.LoFTRObjectDetector(loftr_model, db_images,
+                                            device=device)
+    return detector.LocalFeatureObjectDetector(
+        sp_model, sg_model, db_images, max_keypoints=cfg.max_keypoints,
+        device=device)
+
+
+def detect_sequence(cfg, seq_dir, sfm_model_dir, sp_model, sg_model,
+                    loftr_model=None):
+    import cv2
+
     from onepose_tpu_torch.sfm.extract import load_gray
     from onepose_tpu_torch.utils import geometry as geo
 
@@ -54,9 +87,7 @@ def detect_sequence(cfg, seq_dir, sfm_model_dir, sp_model, sg_model):
         sfm_model_dir, cfg.network.detection, cfg.network.matching,
         cfg.n_ref_view)
     db_images = [load_gray(p) for p in db_paths]
-    detector = LocalFeatureObjectDetector(
-        sp_model, sg_model, db_images, max_keypoints=cfg.max_keypoints,
-        device=torch.device(cfg.get("device", "cuda")))
+    detector = make_detector(cfg, db_images, sp_model, sg_model, loftr_model)
 
     K, _ = geo.get_K(osp.join(seq_dir, "intrinsics.txt"))
     out_color = osp.join(seq_dir, "color_det")
@@ -81,15 +112,16 @@ def detect_sequence(cfg, seq_dir, sfm_model_dir, sp_model, sg_model):
 def detection(cfg):
     from onepose_tpu_torch.utils import model_io
 
-    sp_model = model_io.load_superpoint(cfg.model.extractor_model_path)
-    sg_model = model_io.load_superglue(cfg.model.matching_model_path)
+    sg_model, loftr_model = load_matcher(cfg)
+    sp_model = None if loftr_model is not None else \
+        model_io.load_superpoint(cfg.model.extractor_model_path)
     for entry, sfm_name in zip(_read_list(cfg.input.data_list),
                                _read_list(cfg.input.sfm_list)):
         obj_dir, *seqs = entry.split(" ")
         for seq in seqs:
             detect_sequence(cfg, osp.join(cfg.scan_data_dir, obj_dir, seq),
                             osp.join(cfg.sfm_model_dir, sfm_name),
-                            sp_model, sg_model)
+                            sp_model, sg_model, loftr_model)
 
 
 def main():

@@ -16,8 +16,11 @@ frames to ``demo_video.mp4``.
 The config key ``device`` names the torch device (default ``cuda``; there
 is no quiet CPU fallback). SuperPoint defaults as in the root entry: a
 bf16 direct stem and a bf16 encoder (``superpoint.entry_preset``);
-``stem_dtype=float32`` selects the fp32 encoder and the stem kernel. :func:`demo_frames` takes frames held in memory; the
-CLI reads the sequence's PNGs.
+``stem_dtype=float32`` selects the fp32 encoder and the stem kernel.
+``detector_matcher=loftr`` detects with LoFTR (``model.loftr_model_path``)
+in place of SuperGlue (``feature_matching_object_detector.make_detector``).
+:func:`demo_frames` takes frames held in memory; the CLI reads the
+sequence's PNGs.
 """
 from __future__ import annotations
 
@@ -40,7 +43,8 @@ class DemoNoise(NamedTuple):
     """Injected RANSAC noise of one frame: the pipeline's PnP (batch 1);
     when tracking, the tracker's (``tracker.TrackNoise``); when the frame
     runs full detection, the detector's similarity RANSAC
-    ([n_views, 256, max_keypoints])."""
+    ([n_views, 256, max_keypoints]; with LoFTR [n_views, 256, view
+    cells])."""
     pose: epnp.RansacNoise
     track: Optional[TrackNoise] = None
     detect: Optional[torch.Tensor] = None
@@ -143,9 +147,8 @@ def inference_core(cfg, noises: Optional[Iterable[DemoNoise]] = None):
     import cv2
 
     from onepose_tpu_torch import pipeline
-    from onepose_tpu_torch.detector import LocalFeatureObjectDetector
     from onepose_tpu_torch.feature_matching_object_detector import (
-        sample_ref_views)
+        load_matcher, make_detector, sample_ref_views)
     from onepose_tpu_torch.inference import object_db
     from onepose_tpu_torch.models import superpoint
     from onepose_tpu_torch.sfm.extract import CONFS, load_gray
@@ -155,7 +158,7 @@ def inference_core(cfg, noises: Optional[Iterable[DemoNoise]] = None):
 
     gats_model = model_io.load_gats_spg(cfg.model.onepose_model_path)
     sp_model = model_io.load_superpoint(cfg.model.extractor_model_path)
-    sg_model = model_io.load_superglue(cfg.model.matching_model_path)
+    sg_model, loftr_model = load_matcher(cfg)
 
     data_root = cfg.data_root
     seq_dir = osp.join(data_root, cfg.data_seq)
@@ -182,9 +185,8 @@ def inference_core(cfg, noises: Optional[Iterable[DemoNoise]] = None):
     db_paths = sample_ref_views(
         sfm_model_dir, cfg.network.detection, cfg.network.matching,
         cfg.n_ref_view)
-    det = LocalFeatureObjectDetector(
-        sp_model, sg_model, [load_gray(p) for p in db_paths],
-        max_keypoints=cfg.max_keypoints, device=device)
+    det = make_detector(cfg, [load_gray(p) for p in db_paths], sp_model,
+                        sg_model, loftr_model)
     tracker = BATracker(device=device) if cfg.use_tracking else None
 
     paths = sorted(

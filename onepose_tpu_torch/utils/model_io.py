@@ -3,7 +3,10 @@
 - Reference PyTorch checkpoints (``superpoint_v1.pth``, ``GATsSPG.ckpt``,
   ``superglue_outdoor.pth``) load into the port's modules with the
   reference loader's prefix stripping (``extractor.``, ``matcher.``,
-  ``model.``).
+  ``model.``). A LoFTR state dict under LoFTR's module names loads into
+  ``models/loftr.LoFTR`` by name, with a configuration of the variant
+  that module builds (``temp_bug_fix`` True; ``resolve_config`` refuses
+  the others).
 - Training checkpoints are torch files too: ``state_dict`` holds the
   matcher's parameters under the reference's key names (``matcher.gnn.
   layers.{i}...``), so :func:`load_gats_spg` reads one directly; beside it
@@ -25,6 +28,7 @@ import torch
 
 from onepose_tpu_torch.models import convert
 from onepose_tpu_torch.models.gats_spg import GATsSPG
+from onepose_tpu_torch.models.loftr import LoFTR
 from onepose_tpu_torch.models.superglue import SuperGlue
 from onepose_tpu_torch.models.superpoint import SuperPoint
 
@@ -55,6 +59,21 @@ def load_gats_spg(path: str) -> GATsSPG:
 def load_superglue(path: str) -> SuperGlue:
     _check_torch_ckpt(path)
     return convert.superglue_from_state_dict(convert.load_state_dict(path))
+
+
+def load_loftr(path: str, config=None) -> LoFTR:
+    """LoFTR from a state dict under its module names (a ``matcher.``
+    prefix, as LoFTR's Lightning module saves it, stripped), strictly by
+    name; ``config`` as ``models/loftr.resolve_config`` takes it (a
+    variant the module does not build raises ``ValueError``). The positional
+    encoding's buffer, which older checkpoints hold, is rebuilt, not
+    read."""
+    _check_torch_ckpt(path)
+    sd = convert.load_state_dict(path, strip_prefixes=("matcher.",))
+    sd = {k: v for k, v in sd.items() if not k.startswith("pos_encoding.")}
+    model = LoFTR(config)
+    model.load_state_dict(sd, strict=True)
+    return model.eval()
 
 
 # ---------------------------------------------------------------------------

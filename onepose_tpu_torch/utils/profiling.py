@@ -42,6 +42,15 @@ at that moment. The spans, a child inside its parent on one thread:
 ``fit``, ``box``              ``ops/similarity.ransac_similarity``;
                               ``detector.LocalFeatureObjectDetector.box``
                               (its reads of the fit to the host)
+``loftr``                     ``models/loftr.Matcher.__call__`` (the
+                              detector's LoFTR matcher, one frame against
+                              every view); children ``loftr.backbone``
+                              (the frame's ResNet-FPN), ``loftr.coarse``
+                              (positional encoding and coarse
+                              transformer), ``loftr.match`` (the
+                              dual-softmax kernel and the mask rule),
+                              ``loftr.fine`` (windows, fine transformer,
+                              expectation)
 ============================  ==============================================
 
 No span sits inside a loop that runs per iteration (Sinkhorn's steps, the

@@ -568,3 +568,89 @@ def test_extract_to_h5_on_card_matches_cpu(cuda, tmp_path):
         np.testing.assert_allclose(c["scores"][co], h["scores"][ho],
                                    atol=1e-5)
         np.testing.assert_array_equal(c["image_size"], [160, 128])
+
+
+def test_match_kernel_at_the_loftr_shape(cuda):
+    """LoFTR's coarse match in the detector: 15 views' 4,096 cells against
+    a 1440x1920 frame's 43,200, d 256, scale 256·0.1, 2.65 G entries of S
+    a call. Descriptors of norm 16 (LayerNorm's scale: S = 10 for a
+    self-match), with 2,000 of each view's cells copied into the frame's
+    set so that rows and columns have peaks. Judged per view (one conf
+    matrix at a time) under match_gate."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    b, n0, n1, d = 15, 4096, 43200, 256
+    d0 = torch.randn(b, n0, d, device=cuda, generator=gen)
+    d0 = d0 / d0.norm(dim=-1, keepdim=True) * 16.0
+    d1 = torch.randn(b, n1, d, device=cuda, generator=gen)
+    d1 = d1 / d1.norm(dim=-1, keepdim=True) * 16.0
+    src = torch.randperm(n0, device=cuda, generator=gen)[:2000]
+    dst = torch.randperm(n1, device=cuda, generator=gen)[:2000]
+    d1[:, dst] = d0[:, src]
+    before = match.dual_softmax_argmax.launches
+    got = match.dual_softmax_argmax(d0, d1, 25.6)
+    assert match.dual_softmax_argmax.launches == before + 1
+    assert int(got[0].max()) < n1 and int(got[2].max()) < n0
+    for v in range(b):
+        gate = match.match_gate(tuple(t[v:v + 1] for t in got),
+                                d0[v:v + 1], d1[v:v + 1], 25.6)
+        assert gate.ok, (v, gate)
+    # the planted peaks are found: each copied cell's row picks its copy
+    assert float((got[0][:, src] == dst).float().mean()) > 0.99
+
+
+def _loftr_planted(views):
+    """Seeded LoFTR weights planted as tests/test_torch_loftr.py plants
+    them: norm2 scaled by 1e-3, layer3_outconv whitening the views' coarse
+    features so that a self-match's S is about 50 (on the CPU); and
+    merge_feat scaled by 0.05, so that the fine heatmap's logits are of
+    order 1 and its expectation does not amplify rounding."""
+    from onepose_tpu_torch.models import loftr
+
+    torch.manual_seed(0)
+    sd = loftr.LoFTR().state_dict()
+    for k in sd:
+        if ".norm2." in k:
+            sd[k] = sd[k] * 1e-3
+    sd["backbone.layer3_outconv.weight"] = torch.eye(256)[..., None, None]
+    x3, _ = loftr.backbone(loftr.prepare(sd), views)
+    x = x3.permute(0, 2, 3, 1).reshape(-1, 256).double()
+    lam, vec = torch.linalg.eigh(x.T @ x / len(x))
+    lam = lam.clamp(min=0.1 * float(lam.mean()))
+    white = vec @ torch.diag(lam.rsqrt()) @ vec.T
+    s = (50 * 25.6 / (x @ white).square().sum(-1).median()).sqrt()
+    sd["backbone.layer3_outconv.weight"] = (white * s).float()[..., None,
+                                                               None]
+    for k in ("weight", "bias"):
+        sd[f"fine_preprocess.merge_feat.{k}"] *= 0.05
+    return sd
+
+
+def test_loftr_matcher_on_card_matches_cpu(cuda):
+    """The LoFTR matcher at published widths on 3 views of 128x128
+    against a 192x256 frame: the card's slate equals the CPU's, conf
+    within 2e-4 relative (the two backbones differ by about 1e-5 relative,
+    cuDNN's convolutions against the CPU's, which moves S, 50 for a
+    self-match, by about 1e-3; 3.6e-5 read on an H100), refined points
+    within 1e-3 px; one match-kernel launch a frame."""
+    from onepose_tpu_torch.models import loftr
+
+    g = torch.Generator().manual_seed(2)
+    views = torch.rand(3, 1, 128, 128, generator=g)
+    frame = torch.rand(1, 1, 192, 256, generator=g)
+    frame[0, 0, 32:160, 64:192] = views[2, 0]
+    sd, out = _loftr_planted(views), {}
+    for dev in (torch.device("cpu"), cuda):
+        m = loftr.Matcher({k: v.to(dev) for k, v in sd.items()},
+                          views.to(dev))
+        before = match.dual_softmax_argmax.launches
+        out[dev.type] = m(frame.to(dev))
+        if dev.type == "cuda":
+            assert match.dual_softmax_argmax.launches == before + 1
+            assert int(m.last_matches) == int(out["cuda"].valid.sum())
+    cpu, card = out["cpu"], out["cuda"]
+    assert torch.equal(card.valid.cpu(), cpu.valid) and bool(cpu.valid.any())
+    v = cpu.valid
+    assert torch.equal(card.j.cpu()[v], cpu.j[v])
+    rel = (card.conf.cpu()[v] - cpu.conf[v]).abs() / cpu.conf[v]
+    assert float(rel.max()) <= 2e-4
+    assert float((card.points1.cpu()[v] - cpu.points1[v]).abs().max()) <= 1e-3
