@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``onepose_tpu_torch/csrc`` at
 first use (into ``build/onepose_tpu_torch/``, counted in this run's time)
-and runs twenty phases; weights and inputs come from fixed seeds.
+and runs twenty-one phases; weights and inputs come from fixed seeds.
 
   1. card name and power limit (nvidia-smi);
   2. kernel build time, ptxas register use, and the count of tensor-core
@@ -22,6 +22,13 @@ and runs twenty phases; weights and inputs come from fixed seeds.
      under the stem's gate; beside it the kernel's, plain fp32's and
      cuDNN-with-TF32's error against fp64, both times, the bound and the
      kernel's share of it, and its launches (7 a call);
+  3s. SuperGlue's Sinkhorn kernel vs its plain version (the eager
+     logsumexp loop) at the detector's [15,1024,1024] and at an SfM pair
+     at the largest bucket, [1,4096,4096], 100 iterations each: within
+     1e-5 of the plain version's scale, and against an fp64 plain
+     Sinkhorn at most twice the plain fp32 version's error; both times,
+     the bound, the time of streaming the scores once an iteration, and
+     its launches (1 a call);
   4. match kernel vs its plain version at [8,1024,256]x[8,2000,256] and
      ragged [2,1000,256]x[2,1990,256], each on random unit descriptors and
      on peaked ones (DB slots j < N1 hold noisy copies of query j), under
@@ -228,6 +235,8 @@ STEM_TOL = 1e-4        # relative to max(|ref|, 1): the fused-stem gate's
 # NVIDIA H100 SXM peaks (data sheet, dense): TF32 tensor cores, fp32 FMA on
 # the CUDA cores, HBM bytes/s
 PEAK_TF32, PEAK_FP32, PEAK_BYTES = 495e12, 67e12, 3.35e12
+# exponentials a second: the SFU's 16 a clock on each of 132 SMs at 1.98 GHz
+PEAK_EXP = 16 * 132 * 1.98e9
 POSE_DEG, POSE_CM = 0.5, 0.5
 PARITY_DEG, PARITY_CM = 0.05, 0.05   # card vs CPU pose agreement
 
@@ -315,6 +324,11 @@ ENCODER_SHAPES = ((128, 256, 256, 64), (1, 720, 960, 64), (15, 256, 256, 64),
 ENCODER_WIDTHS = ((64, 64, False), (64, 64, True), (64, 128, False),
                   (128, 128, True), (128, 128, False), (128, 128, False),
                   (128, 512, False))
+# phase 3s: scores shapes (the detector's, an SfM pair at the largest bucket),
+# iterations, and the gate against the plain version, relative to its scale
+SINKHORN_SHAPES = ((15, 1024, 1024), (1, 4096, 4096))
+SINKHORN_ITERS = 100
+SINKHORN_TOL = 1e-5
 # phase 19: the most match slots of the first 4 frames (4·K_PTS) that may
 # differ between batch 4 and batch 8, four times the 20 measured on an H100
 BATCH_ROWS_MAX_SLOTS = 80
@@ -568,6 +582,56 @@ class Smoke:
                    f"{errs64['cudnn_tf32']:.3e}; kernel {ms:.3f} ms, plain "
                    f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
                    f"({bound_by}, {100 * bound_ms / ms:.1f}%)  [{self.smi}]")
+
+    # -- 3s ---------------------------------------------------------------
+    def sinkhorn(self):
+        for shape in SINKHORN_SHAPES:
+            self.sinkhorn_case(shape)
+
+    def sinkhorn_case(self, shape):
+        """The Sinkhorn kernel vs plain at scores ``shape`` (SuperGlue's
+        scale, alpha 1), errors against fp64, both times, the bound and the
+        share, into results["sinkhorn"]."""
+        from onepose_tpu_torch.ops import sinkhorn
+
+        g = torch.Generator(device=self.dev).manual_seed(sum(shape))
+        scores = torch.randn(shape, generator=g, device=self.dev) * 3
+        alpha = torch.tensor(1.0, device=self.dev)
+        it = SINKHORN_ITERS
+        before = sinkhorn.log_sinkhorn.launches
+        got = sinkhorn.log_sinkhorn(scores, alpha, it)
+        launches = sinkhorn.log_sinkhorn.launches - before
+        ref = sinkhorn.sinkhorn_reference(scores, alpha, it)
+        ref64 = sinkhorn.sinkhorn_reference(scores.double(), alpha.double(),
+                                            it)
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        errs64 = {k: float((v.double() - ref64).abs().max()) for k, v in
+                  (("kernel", got), ("plain_fp32", ref))}
+        del got, ref, ref64
+        ms = cuda_ms(lambda: sinkhorn.log_sinkhorn(scores, alpha, it),
+                     iters=10, warmup=2)
+        plain_ms = cuda_ms(
+            lambda: sinkhorn.sinkhorn_reference(scores, alpha, it),
+            iters=3, warmup=1)
+        bound_ms, bound_by = sinkhorn_bound_ms(*shape, it)
+        stream_ms = sinkhorn_stream_ms(*shape, it)
+        self.results.setdefault("sinkhorn", {})[str(shape)] = {
+            "max_abs_err": err, "max_rel_err": rel, "gate": SINKHORN_TOL,
+            "err_vs_fp64": errs64, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "stream_ms": stream_ms, "share_of_bound": bound_ms / ms,
+            "launches": launches}
+        self.check(launches == 1 and rel <= SINKHORN_TOL
+                   and errs64["kernel"] <= 2 * errs64["plain_fp32"],
+                   f"sinkhorn {list(shape)}x{it}: {launches} launch, "
+                   f"max|d|={err:.3e} ({rel:.2e} of scale, gate "
+                   f"{SINKHORN_TOL:.0e}); vs fp64: kernel "
+                   f"{errs64['kernel']:.3e}, plain fp32 "
+                   f"{errs64['plain_fp32']:.3e}; kernel {ms:.3f} ms, plain "
+                   f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by},"
+                   f" {100 * bound_ms / ms:.1f}%), streamed {stream_ms:.3f}"
+                   f" ms  [{self.smi}]")
 
     # -- 4 ----------------------------------------------------------------
     def match(self):
@@ -1027,7 +1091,7 @@ class Smoke:
             return d, d.detect_bbox(frame)
 
         det, (box, inliers) = self.path_launches(
-            "detector", detector_path, kernels=("stem",))
+            "detector", detector_path, kernels=("stem", "sinkhorn"))
         stats["planted_box"] = {"box": box.tolist(), "rect": rect.tolist(),
                                 "inliers": inliers}
         self.check(np.abs(box - rect).max() <= 1 and inliers >= 100,
@@ -1532,7 +1596,8 @@ class Smoke:
                 device=self.dev, mark=mark)
 
         torch.cuda.reset_peak_memory_stats()
-        res = self.path_launches("sfm", sfm_path, kernels=("stem",))
+        res = self.path_launches("sfm", sfm_path,
+                                 kernels=("stem", "sinkhorn"))
         # phase 12 trains on this capture's DB
         self.sfm_capture = {"names": names, "K": K, "poses": poses,
                             "images": images, "sp_model": sp_model,
@@ -3072,9 +3137,10 @@ class Smoke:
             f"[{B},{K_PTS},256]x[{B},{SHAPE3D},256] random", {})
         # launches of the main paths (every phase's that drives one)
         en = self.results.get("encoder", {}).get(str(ENCODER_SHAPES[0]), {})
+        sk = self.results.get("sinkhorn", {}).get(str(SINKHORN_SHAPES[0]), {})
         launches = {k: sum(p.get(k, 0) for p in
                            self.results.get("launches", {}).values())
-                    for k in ("stem", "encoder", "match")}
+                    for k in ("stem", "encoder", "match", "sinkhorn")}
         # no single PyTorch call computes either function (the stem is two
         # convs, two ReLUs and a pool; the match an einsum, two softmaxes
         # and two argmaxes), so library_ms is null
@@ -3102,6 +3168,14 @@ class Smoke:
              "max_abs_err": mt.get("max_abs_err"), "ms": mt.get("ms"),
              "plain_ms": mt.get("plain_ms"), "bound_ms": mt.get("bound_ms"),
              "bound_by": mt.get("bound_by"), "library_ms": None},
+            # the plain version is ATen's logsumexp loop, no library call
+            {"name": "log_sinkhorn", "route": "cuda",
+             "source": "onepose_tpu_torch/csrc/sinkhorn.cu",
+             "replaces": None,
+             "launches": launches.get("sinkhorn", 0),
+             "max_abs_err": sk.get("max_abs_err"), "ms": sk.get("ms"),
+             "plain_ms": sk.get("plain_ms"), "bound_ms": sk.get("bound_ms"),
+             "bound_by": sk.get("bound_by"), "library_ms": None},
         ]}
 
 
@@ -3722,19 +3796,21 @@ class RowTrace(TorchDispatchMode):
 
 
 def launch_counts() -> dict:
-    from onepose_tpu_torch.ops import encoder, match, stem
+    from onepose_tpu_torch.ops import encoder, match, sinkhorn, stem
 
     return {"stem": stem.fused_stem.launches,
             "encoder": encoder.encoder_conv.launches,
-            "match": match.dual_softmax_argmax.launches}
+            "match": match.dual_softmax_argmax.launches,
+            "sinkhorn": sinkhorn.log_sinkhorn.launches}
 
 
 def set_launch_counts(counts: dict) -> None:
-    from onepose_tpu_torch.ops import encoder, match, stem
+    from onepose_tpu_torch.ops import encoder, match, sinkhorn, stem
 
     stem.fused_stem.launches = counts["stem"]
     encoder.encoder_conv.launches = counts["encoder"]
     match.dual_softmax_argmax.launches = counts["match"]
+    sinkhorn.log_sinkhorn.launches = counts["sinkhorn"]
 
 
 def event_ms(fn, iters, warmup):
@@ -3985,6 +4061,23 @@ def match_bound_ms(b, n1, n2, d):
         "operations": 3 * 2 * b * n1 * n2 * d / PEAK_TF32})
 
 
+def sinkhorn_bound_ms(b, m, n, iters):
+    """Least time of the Sinkhorn: two exponentials a coupling an
+    iteration at the SFU's rate, or reading the scores once and writing
+    the log assignment once, whichever is longer."""
+    couplings = b * (m + 1) * (n + 1)
+    return _bound({"operations": 2 * couplings * iters / PEAK_EXP,
+                   "bytes": (b * m * n + couplings) * 4 / PEAK_BYTES})
+
+
+def sinkhorn_stream_ms(b, m, n, iters):
+    """The kernel's design at HBM's rate: the scores read once an
+    iteration and once more for the log assignment, which is written
+    once."""
+    return ((iters + 1) * b * m * n + b * (m + 1) * (n + 1)) * 4 \
+        / PEAK_BYTES * 1e3
+
+
 def train_gats_config() -> dict:
     """GATsSPG's settings in TRAIN_YAML, as the train entry reads them."""
     return {k: TRAIN_YAML["model"][k] for k in (
@@ -4156,6 +4249,7 @@ def main() -> int:
         ("1 card", smoke.card), ("2 kernel build", smoke.build),
         ("3 stem kernel vs plain", smoke.stem),
         ("3e encoder kernel vs plain", smoke.encoder),
+        ("3s sinkhorn kernel vs plain", smoke.sinkhorn),
         ("4 match kernel vs plain", smoke.match),
         ("5 known-pose PnP on the card", smoke.known_pose),
         ("6 card vs CPU parity", smoke.parity),

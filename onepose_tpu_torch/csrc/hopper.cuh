@@ -57,6 +57,13 @@ __device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
                : "memory");
 }
 
+// 4 bytes, any alignment of 4 (through L1: .cg takes only 16)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

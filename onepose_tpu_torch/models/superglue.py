@@ -11,9 +11,10 @@ Tokens are [B, N, D] as in the JAX package. In attention channel c belongs
 to head ``c % num_heads`` (``_split_heads`` reshapes to (D/H, H)); a
 contiguous split would change the model under converted weights. The JAX
 package's fused Q/K/V product is an XLA workaround; here Q, K and V are
-three linears. Attention and Sinkhorn have no Pallas kernel in the JAX
-package, so they stay plain PyTorch ops (einsum, softmax, logsumexp) in
-fp32, in the JAX package's order of operations.
+three linears. Attention has no Pallas kernel in the JAX package, so it
+stays plain PyTorch ops (einsum, softmax) in fp32, in the JAX package's
+order of operations. Sinkhorn has none either; on a card it runs as one
+CUDA kernel (``ops/sinkhorn.py``), on the CPU as the plain loop.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import torch
 from torch import nn
 
+from onepose_tpu_torch.ops import sinkhorn
 from onepose_tpu_torch.utils.profiling import span
 
 DEFAULT_CONFIG = {
@@ -138,28 +140,9 @@ def attention_propagation(p: AttentionalPropagation, x: torch.Tensor,
 def log_optimal_transport(scores: torch.Tensor, alpha: torch.Tensor,
                           iters: int) -> torch.Tensor:
     """Log-space Sinkhorn with a learned dustbin row and column.
-    scores [B, M, N] fp32 → log assignment [B, M+1, N+1]."""
-    b, m, n = scores.shape
-    f32 = dict(dtype=torch.float32, device=scores.device)
-    ms, ns = torch.tensor(float(m), **f32), torch.tensor(float(n), **f32)
-    alpha = alpha.to(torch.float32)
-    couplings = torch.cat(
-        [torch.cat([scores, alpha.expand(b, m, 1)], dim=-1),
-         torch.cat([alpha.expand(b, 1, n), alpha.expand(b, 1, 1)], dim=-1)],
-        dim=1)
-
-    norm = -torch.log(ms + ns)
-    log_mu = torch.cat([norm.expand(m), (torch.log(ns) + norm)[None]])
-    log_nu = torch.cat([norm.expand(n), (torch.log(ms) + norm)[None]])
-    log_mu = log_mu.expand(b, m + 1)
-    log_nu = log_nu.expand(b, n + 1)
-
-    u = torch.zeros_like(log_mu)
-    v = torch.zeros_like(log_nu)
-    for _ in range(iters):
-        u = log_mu - torch.logsumexp(couplings + v[:, None, :], dim=2)
-        v = log_nu - torch.logsumexp(couplings + u[:, :, None], dim=1)
-    return couplings + u[:, :, None] + v[:, None, :] - norm
+    scores [B, M, N] fp32 → log assignment [B, M+1, N+1]: the kernel on a
+    card, the plain loop on the CPU (``ops/sinkhorn.py::log_sinkhorn``)."""
+    return sinkhorn.log_sinkhorn(scores, alpha, iters)
 
 
 def resolve_config(config: Optional[dict]) -> dict:

@@ -30,6 +30,7 @@ _SIGNATURES = {
     "stem_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "match_forward": [_P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P],
     "encoder_conv_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sinkhorn_forward": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lib = None
@@ -93,6 +94,8 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.match_workspace_bytes.argtypes = [_I, _I, _I, _I]
         lib.match_workspace_bytes.restype = ctypes.c_size_t
+        lib.sinkhorn_workspace_bytes.argtypes = [_I, _I, _I]
+        lib.sinkhorn_workspace_bytes.restype = ctypes.c_size_t
         lib.onepose_cuda_error_string.argtypes = [ctypes.c_int]
         lib.onepose_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -13,7 +13,9 @@ fp32-class), and their error against an fp64 reference at most twice
 cuDNN fp32's (TF32 off); the match kernel under
 ``match.match_gate``: each max conf within GATE_REL = 3e-5 of the plain
 max of its row or column, indices equal except in relative near-ties
-(fp32-class products agree to about 1e-5, TF32 ones do not); the serve
+(fp32-class products agree to about 1e-5, TF32 ones do not); the
+Sinkhorn kernel's log assignment within 1e-5 of the plain loop's scale
+and against an fp64 loop at most twice the plain fp32 loop's error; the serve
 step's matches and poses equal to per-object pipelines (poses within
 1e-4); the detector's box and inliers equal to the CPU's, its log
 assignment within superglue.GATE_REL = 5e-5 of the CPU's scale and
@@ -275,6 +277,136 @@ def test_match_wrapper_refuses_bad_input(cuda):
     before = match.dual_softmax_argmax.launches
     match.dual_softmax_argmax(d, d, 0.07)
     assert match.dual_softmax_argmax.launches == before + 1
+
+
+# (scores shape, iterations, what is masked to -1e9): the detector's shape
+# with padded keypoint slots in some views, ragged shapes, one SfM pair at
+# the largest bucket and two at the next (one block an SM: longer rows),
+# 0 and 1 iterations, a wholly masked row and column
+SINKHORN_CASES = {
+    "detect_padded": ((15, 1024, 1024), 100, "padded"),
+    "ragged_300x700": ((1, 300, 700), 100, None),
+    "ragged_1024x517": ((3, 1024, 517), 100, None),
+    "sfm_pair_4096": ((1, 4096, 4096), 100, None),
+    "sfm_bucket_2048": ((2, 600, 2048), 100, None),
+    "iters_0": ((15, 1024, 1024), 0, "padded"),
+    "iters_1": ((2, 200, 330), 1, None),
+    "masked_row_and_column": ((2, 64, 80), 100, "row_and_column"),
+}
+
+
+def _sinkhorn_scores(shape, masked, dev):
+    """Scores at SuperGlue's scale (its products over sqrt(256) reach a
+    few units), with -1e9 where ``superglue._scores`` masks."""
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    scores = torch.randn(shape, generator=g, device=dev) * 3
+    if masked == "padded":      # trailing slots of every third view
+        scores[::3, 900:] = -1e9
+        scores[1::3, :, 950:] = -1e9
+    elif masked == "row_and_column":
+        scores[:, 5] = -1e9
+        scores[:, :, 7] = -1e9
+    return scores
+
+
+def _live_err(z, ref):
+    """max |z − ref| over entries no mask sends to -1e9, and over the
+    largest such |ref|."""
+    live = ref.abs() < 1e6
+    d = float((z.double() - ref.double()).abs()[live].max())
+    return d, d / float(ref.abs()[live].max())
+
+
+@pytest.mark.parametrize("case", list(SINKHORN_CASES))
+def test_sinkhorn_kernel_matches_plain(cuda, case):
+    """Within 1e-5 of the plain fp32 version's scale (sound fp32 runs
+    differ by about 1e-6; superglue.GATE_REL is 5e-5), masked entries
+    still masked, and against an fp64 plain Sinkhorn at most twice the
+    plain fp32 version's error."""
+    from onepose_tpu_torch.ops import sinkhorn
+
+    shape, iters, masked = SINKHORN_CASES[case]
+    scores = _sinkhorn_scores(shape, masked, cuda)
+    alpha = torch.tensor(1.0, device=cuda)
+    before = sinkhorn.log_sinkhorn.launches
+    got = sinkhorn.log_sinkhorn(scores, alpha, iters)
+    assert sinkhorn.log_sinkhorn.launches == before + 1
+    ref = sinkhorn.sinkhorn_reference(scores, alpha, iters)
+    assert got.shape == ref.shape == (shape[0], shape[1] + 1, shape[2] + 1)
+    assert torch.equal(got.abs() < 1e6, ref.abs() < 1e6)
+    _, rel = _live_err(got, ref)
+    assert rel <= 1e-5, rel
+    ref64 = sinkhorn.sinkhorn_reference(scores.double(), alpha.double(),
+                                        iters)
+    kernel64, _ = _live_err(got, ref64)
+    plain64, _ = _live_err(ref, ref64)
+    assert kernel64 <= 2 * plain64, (kernel64, plain64)
+
+
+def test_sinkhorn_on_card_never_waits(cuda):
+    """``log_optimal_transport`` on a card makes no synchronising call (the
+    plain loop's scalar uploads do), launches the kernel once a call, and
+    SuperGlue's forward still matches the CPU's."""
+    from onepose_tpu_torch.models import convert, superglue
+    from onepose_tpu_torch.ops import sinkhorn
+
+    scores = _sinkhorn_scores((3, 256, 300), "padded", cuda)
+    alpha = torch.tensor(0.5, device=cuda)
+    superglue.log_optimal_transport(scores, alpha, 3)   # builds the library
+    torch.cuda.synchronize()
+    before = sinkhorn.log_sinkhorn.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [superglue.log_optimal_transport(scores, alpha, 100)
+                for _ in range(3)]
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            sinkhorn.sinkhorn_reference(scores, alpha, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert sinkhorn.log_sinkhorn.launches == before + 3
+    assert all(torch.equal(z, outs[0]) for z in outs[1:])
+
+    rng = np.random.default_rng(11)
+    model = convert.superglue_from_jax(
+        convert.init_superglue_params(rng, {"num_gnn_layers": 4}))
+    data = {f"keypoints{i}": torch.from_numpy(
+                rng.uniform(0, 256, (2, n, 2)).astype(np.float32))
+            for i, n in ((0, 200), (1, 230))}
+    data.update({f"scores{i}": torch.from_numpy(
+                     rng.uniform(0, 1, (2, n)).astype(np.float32))
+                 for i, n in ((0, 200), (1, 230))})
+    data.update({f"descriptors{i}": torch.from_numpy(
+                     _unit(rng, (2, n, 256), "cpu").numpy())
+                 for i, n in ((0, 200), (1, 230))})
+    data["shape0"] = data["shape1"] = (256, 256)
+    cfg = superglue.resolve_config({"num_gnn_layers": 4})
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        d = {k: v.to(dev) if torch.is_tensor(v) else v
+             for k, v in data.items()}
+        m = copy.deepcopy(model).to(dev)
+        runs[dev.type] = (superglue.forward(m, d, cfg).matches0.cpu(),
+                          superglue.log_assignment(m, d, cfg).cpu())
+    gate = superglue.match_gate(*runs["cuda"], *runs["cpu"], 0.2)
+    assert gate.ok, gate
+
+
+def test_sinkhorn_wrapper_refuses_bad_input(cuda):
+    from onepose_tpu_torch.ops import sinkhorn
+
+    scores = _sinkhorn_scores((2, 40, 50), None, cuda)
+    alpha = torch.tensor(1.0, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        sinkhorn.log_sinkhorn(scores.transpose(1, 2), alpha, 5)
+    with pytest.raises(ValueError, match="float32"):
+        sinkhorn.log_sinkhorn(scores.double(), alpha, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        sinkhorn.log_sinkhorn(scores, alpha.cpu(), 5)
+    with pytest.raises(ValueError, match="no kernel"):
+        sinkhorn.log_sinkhorn(scores[:, :0].contiguous(), alpha, 5)
+    with pytest.raises(ValueError, match="no kernel"):
+        sinkhorn.log_sinkhorn(
+            torch.zeros((1, 4, 20000), device=cuda), alpha, 5)
 
 
 def test_pipeline_on_card_matches_cpu(cuda):
