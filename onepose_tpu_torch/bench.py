@@ -104,17 +104,6 @@ def wait_for_idle() -> float:
     sys.exit(3)
 
 
-def entry_device(device, who: str):
-    """``device`` as a torch device; a card that is missing raises."""
-    import torch
-
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{who}: no CUDA device; pass --device cpu to "
-                           "run on the CPU")
-    return device
-
-
 def batch_K(batch: int, hw: int, device):
     """The entries' intrinsics, ``FOCAL`` px on hw x hw, for ``batch``
     frames: [batch, 3, 3] float32 on ``device``."""
@@ -159,12 +148,12 @@ def run(batch: int = BATCH, hw: int = H, max_keypoints: int = MAX_KPTS,
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
-    from onepose_tpu_torch import pipeline
+    from onepose_tpu_torch import pipeline, runtime
     from onepose_tpu_torch.eval_real import device_description
     from onepose_tpu_torch.utils.profiling import StageClock, time_blocks
     from onepose_tpu_torch.utils.synthetic import random_db
 
-    device = entry_device(device, "bench")
+    device = runtime.resolve_device(device, "bench")
     load1 = host_load() if load1 is None else load1
     rng = np.random.default_rng(0)
     sp_model, gats_model = random_models(0, gats_config)

@@ -147,12 +147,12 @@ def run(args, batch: int = 8, hw: int = 512, max_keypoints: int = 1024,
     keyword arguments set the protocol's shape for small runs."""
     import torch
 
-    from onepose_tpu_torch import serving
-    from onepose_tpu_torch.bench import batch_K, entry_device, random_models
+    from onepose_tpu_torch import runtime, serving
+    from onepose_tpu_torch.bench import batch_K, random_models
     from onepose_tpu_torch.eval_real import device_description
     from onepose_tpu_torch.utils.profiling import time_blocks
 
-    device = entry_device(args.device, "bench_serving")
+    device = runtime.resolve_device(args.device, "bench_serving")
     rng = np.random.default_rng(0)
     sp_model, gats_model = random_models(0, gats_config)
     n_objects = args.n_objects

@@ -70,7 +70,7 @@ def run(args, n_points: int = 400, hw: int = 512, n_slots: int = N_SLOTS,
     the tracker loses the object."""
     import torch
 
-    from onepose_tpu_torch.bench import entry_device
+    from onepose_tpu_torch import runtime
     from onepose_tpu_torch.eval_real import device_description
     from onepose_tpu_torch.tracker import BATracker
     from onepose_tpu_torch.utils import geometry as geo
@@ -79,7 +79,7 @@ def run(args, n_points: int = 400, hw: int = 512, n_slots: int = N_SLOTS,
     if args.warmup >= args.frames:
         raise ValueError(f"--warmup ({args.warmup}) must be < --frames "
                          f"({args.frames}): no timed frames would remain")
-    device = entry_device(args.device, "bench_tracker")
+    device = runtime.resolve_device(args.device, "bench_tracker")
     rng = np.random.default_rng(0)
     K, pts3d, frames = make_sequence(rng, args.frames + 1, n_points, hw)
     n = len(pts3d)

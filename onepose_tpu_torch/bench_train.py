@@ -94,13 +94,13 @@ def run(root: str, batch: int = B, shape2d: int = S2, shape3d: int = S3,
     there (``dataset``: :func:`build_dataset`'s sizes)."""
     import torch
 
-    from onepose_tpu_torch.bench import entry_device
+    from onepose_tpu_torch import runtime
     from onepose_tpu_torch.datasets.gats_dataset import GATsSPGDataset
     from onepose_tpu_torch.eval_real import device_description
     from onepose_tpu_torch.runtime.loader import DeviceStager, stage_ahead
     from onepose_tpu_torch.train import trainer
 
-    device = entry_device(device, "bench_train")
+    device = runtime.resolve_device(device, "bench_train")
     if not os.path.exists(f"{root}/done"):
         build_dataset(root, **dataset)
         log("dataset built")

@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from onepose_tpu_torch import runtime
 from onepose_tpu_torch.models import loftr, superglue, superpoint
 from onepose_tpu_torch.ops import similarity
 from onepose_tpu_torch.ops.precision import pin_fp32
@@ -82,10 +83,8 @@ class LocalFeatureObjectDetector:
         """db_images: grayscale [H, W] float arrays in [0, 1] (the sampled
         reference views), H and W divisible by 8."""
         pin_fp32()
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("LocalFeatureObjectDetector: no CUDA device; "
-                               "pass device='cpu' to run on the CPU")
+        self.device = runtime.resolve_device(device,
+                                             "LocalFeatureObjectDetector")
         # the detector's SuperPoint runs with the extract conf (nms_radius
         # 3), as the reference's does, not the model's own defaults
         self.sp_config = dict(superpoint.DEFAULT_CONFIG)
@@ -229,10 +228,7 @@ class LoFTRObjectDetector:
         """db_images: grayscale [H, W] float arrays in [0, 1] (the sampled
         reference views), H and W divisible by 8."""
         pin_fp32()
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("LoFTRObjectDetector: no CUDA device; pass "
-                               "device='cpu' to run on the CPU")
+        self.device = runtime.resolve_device(device, "LoFTRObjectDetector")
         db_stack = torch.as_tensor(
             np.stack([np.asarray(im, np.float32) for im in db_images]),
             device=self.device)[:, None]

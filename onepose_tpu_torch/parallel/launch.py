@@ -36,6 +36,8 @@ from typing import Callable, List, Optional
 import torch
 import torch.distributed as dist
 
+from onepose_tpu_torch import runtime
+
 ENV_KEYS = {"coordinator": "ONEPOSE_COORDINATOR",
             "num_processes": "ONEPOSE_NUM_PROCESSES",
             "process_id": "ONEPOSE_PROCESS_ID"}
@@ -129,10 +131,7 @@ def run_local(fn: Callable, n_ranks: int, *args, device="cuda",
     ``timeout`` seconds makes this raise, and every rank is stopped."""
     import multiprocessing as mp
 
-    device_type = torch.device(device).type
-    if device_type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("run_local: no CUDA device; pass device='cpu' "
-                           "to run the ranks on the CPU")
+    device_type = runtime.resolve_device(device, "run_local").type
     n_cards = torch.cuda.device_count() if device_type == "cuda" else 0
     backend = pick_backend(device_type, n_ranks, n_cards)
     store = dist.TCPStore("127.0.0.1", 0, is_master=True,

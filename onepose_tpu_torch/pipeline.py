@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from onepose_tpu_torch import runtime
 from onepose_tpu_torch.datasets.anno import ObjectDB
 from onepose_tpu_torch.models import gats_spg, superpoint
 from onepose_tpu_torch.ops import epnp
@@ -170,10 +171,7 @@ class PosePipeline:
         self.sp_config = dict(superpoint.DEFAULT_CONFIG)
         self.sp_config.update(sp_config or {})
         self.gats_config = gats_spg.resolve_config(gats_config)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("PosePipeline: no CUDA device; pass "
-                               "device='cpu' to run on the CPU")
+        self.device = runtime.resolve_device(device, "PosePipeline")
         self.mesh = mesh
         db = {k: getattr(db, k) for k in (
             "keypoints3d", "descriptors3d", "descriptors2d_db", "mask3d")}

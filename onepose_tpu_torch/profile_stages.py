@@ -38,16 +38,15 @@ def run(batch: int = 8, hw: int = 512, max_keypoints: int = 1024,
     depth for small runs; each row is passed to ``log`` as it is timed."""
     import torch
 
-    from onepose_tpu_torch import pipeline
-    from onepose_tpu_torch.bench import (NUM_LEAF, batch_K, entry_device,
-                                         random_models)
+    from onepose_tpu_torch import pipeline, runtime
+    from onepose_tpu_torch.bench import NUM_LEAF, batch_K, random_models
     from onepose_tpu_torch.eval_real import device_description
     from onepose_tpu_torch.models import gats_spg, superpoint
     from onepose_tpu_torch.ops.stem import fused_stem
     from onepose_tpu_torch.utils.profiling import time_blocks
     from onepose_tpu_torch.utils.synthetic import random_db
 
-    device = entry_device(device, "profile_stages")
+    device = runtime.resolve_device(device, "profile_stages")
     rng = np.random.default_rng(0)
     sp, gp = random_models(0, gats_config)
     sp, gp = sp.to(device).eval(), gp.to(device).eval()

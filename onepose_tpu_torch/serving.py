@@ -38,6 +38,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from onepose_tpu_torch import runtime
 from onepose_tpu_torch.datasets.anno import ObjectDB
 from onepose_tpu_torch.models import gats_spg, superpoint
 from onepose_tpu_torch.ops import epnp
@@ -156,14 +157,10 @@ class PoseServer:
             raise ValueError(f"batch_size {batch_size} not divisible by data "
                              f"axis {n_data}")
         pin_fp32()
-        device = torch.device(device)
-        if device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("PoseServer: no CUDA device; pass "
-                                   "device='cpu' to run on the CPU")
-            if device.index is None:
-                # worker threads start on device 0: name the device
-                device = torch.device("cuda", torch.cuda.current_device())
+        device = runtime.resolve_device(device, "PoseServer")
+        if device.type == "cuda" and device.index is None:
+            # worker threads start on device 0: name the device
+            device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
 
         self.mesh = mesh

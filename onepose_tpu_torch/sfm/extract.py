@@ -64,17 +64,17 @@ def extract_to_h5(sp_model, img_lists: List[str], feature_out: str,
 
     from onepose_tpu_torch.utils import hdf5
 
+    from onepose_tpu_torch import runtime
     from onepose_tpu_torch.models import superpoint
     from onepose_tpu_torch.ops.precision import pin_fp32
     from onepose_tpu_torch.parallel import collectives as comm
     from onepose_tpu_torch.parallel import mesh as pmesh
-    from onepose_tpu_torch.sfm import resolve_device
 
     n_data = pmesh.axis_size(mesh, "data")
     if batch_size % n_data:
         raise ValueError(f"batch_size {batch_size} not divisible by data "
                          f"axis {n_data}")
-    device = resolve_device(device, "extract_to_h5")
+    device = runtime.resolve_device(device, "extract_to_h5")
     pin_fp32()
     conf = conf or CONFS["superpoint"]
     prep = conf["preprocessing"]

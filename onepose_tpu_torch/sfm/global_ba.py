@@ -13,8 +13,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from onepose_tpu_torch import runtime
 from onepose_tpu_torch.ops import lm
-from onepose_tpu_torch.sfm import resolve_device
 from onepose_tpu_torch.utils import colmap_io
 from onepose_tpu_torch.utils.geometry import qvec2rotmat, rotmat2qvec
 
@@ -28,7 +28,7 @@ def run_bundle_adjuster(model_dir: str, output_dir: Optional[str] = None,
     it back (to ``output_dir`` when given) → initial and final cost."""
     from onepose_tpu_torch.ops.precision import pin_fp32
 
-    device = resolve_device(device, "run_bundle_adjuster")
+    device = runtime.resolve_device(device, "run_bundle_adjuster")
     pin_fp32()
     cameras, images, points3D = colmap_io.read_model(model_dir)
     if not points3D:

@@ -67,17 +67,17 @@ def match_pairs_to_h5(sg_model, pairs: Sequence[Tuple[str, str]],
 
     from onepose_tpu_torch.utils import hdf5
 
+    from onepose_tpu_torch import runtime
     from onepose_tpu_torch.models import superglue
     from onepose_tpu_torch.ops.precision import pin_fp32
     from onepose_tpu_torch.parallel import collectives as comm
     from onepose_tpu_torch.parallel import mesh as pmesh
-    from onepose_tpu_torch.sfm import resolve_device
 
     n_data = pmesh.axis_size(mesh, "data")
     if batch_size % n_data:
         raise ValueError(f"batch_size {batch_size} not divisible by data "
                          f"axis {n_data}")
-    device = resolve_device(device, "match_pairs_to_h5")
+    device = runtime.resolve_device(device, "match_pairs_to_h5")
     pin_fp32()
     sg_conf = dict(CONF)
     sg_conf.update(conf or {})

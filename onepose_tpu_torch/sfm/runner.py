@@ -18,8 +18,9 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from onepose_tpu_torch import runtime
 from onepose_tpu_torch.sfm import extract, match, pairs as pairs_mod, \
-    postprocess, resolve_device, triangulate
+    postprocess, triangulate
 from onepose_tpu_torch.utils import path_utils
 
 
@@ -85,7 +86,7 @@ def run_sfm(img_lists: Sequence[str], outputs_dir: str, sp_model,
 
     from onepose_tpu_torch.parallel import collectives as comm
 
-    device = resolve_device(device, "run_sfm")
+    device = runtime.resolve_device(device, "run_sfm")
     mark = mark or (lambda name: None)
     main = comm.is_main_process()
     if main:

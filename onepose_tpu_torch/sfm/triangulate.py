@@ -34,7 +34,7 @@ import numpy as np
 
 import torch
 
-from onepose_tpu_torch.sfm import resolve_device
+from onepose_tpu_torch import runtime
 from onepose_tpu_torch.utils import colmap_io
 from onepose_tpu_torch.utils.geometry import rotmat2qvec
 
@@ -145,7 +145,7 @@ def verify_matches(feature_path: str, match_path: str,
 
     from onepose_tpu_torch.sfm.match import names_to_pair
 
-    device = resolve_device(device, "verify_matches")
+    device = runtime.resolve_device(device, "verify_matches")
     img_lists = list(dict.fromkeys([p for pair in pairs for p in pair]))
     feats_uv: Dict[str, np.ndarray] = {}
     with hdf5.File(feature_path, "r") as ff:
@@ -531,7 +531,7 @@ def triangulate_from_h5(feature_path: str, match_path: str,
 
     # 3. triangulate
     xyz, kept_tracks, errors = triangulate_tracks(
-        tracks, feats_uv, Ks, poses, device=resolve_device(
+        tracks, feats_uv, Ks, poses, device=runtime.resolve_device(
             device, "triangulate_from_h5"))
 
     # 4. write COLMAP model

@@ -27,6 +27,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from onepose_tpu_torch import runtime
 from onepose_tpu_torch.models.nn_matcher import mutual_nearest_neighbour
 from onepose_tpu_torch.ops import epnp, lie, lk_flow, lm
 from onepose_tpu_torch.ops.precision import pin_fp32
@@ -243,10 +244,7 @@ class BATracker:
                  seed: int = 0,
                  device: torch.device | str = "cuda"):
         pin_fp32()
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("BATracker: no CUDA device; pass "
-                               "device='cpu' to run on the CPU")
+        self.device = runtime.resolve_device(device, "BATracker")
         self.win_size = win_size
         self.frame_interval = frame_interval
         self.update_threshold_cm = update_threshold_cm

@@ -39,6 +39,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from onepose_tpu_torch import runtime
+
 HOST_KEYS = ("descriptors2d_query", "descriptors3d_db", "descriptors2d_db",
              "conf_gt")
 
@@ -50,11 +52,7 @@ def _gats_config(cfg) -> dict:
 
 
 def _device(cfg) -> torch.device:
-    device = torch.device(cfg.get("device", "cuda"))
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train: no CUDA device; pass device=cpu to train "
-                           "on the CPU")
-    return device
+    return runtime.resolve_device(cfg.get("device", "cuda"), "train")
 
 
 def train(cfg, model=None,

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from onepose_tpu_torch import runtime
 from onepose_tpu_torch.models import convert, gats_spg
 from onepose_tpu_torch.parallel import collectives as comm
 from onepose_tpu_torch.parallel import mesh as pmesh
@@ -201,10 +202,7 @@ def init_train_state(tx: Callable[..., Optimizer],
     package's init schemes, ``convert.init_gats_spg_params``) and its
     optimizer."""
     cfg = gats_spg.resolve_config(gats_config)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("init_train_state: no CUDA device; pass "
-                           "device='cpu' to train on the CPU")
+    device = runtime.resolve_device(device, "init_train_state")
     if model is None:
         model = convert.gats_spg_from_jax(convert.init_gats_spg_params(
             np.random.default_rng(seed), cfg))

@@ -1,6 +1,7 @@
 """Boundaries of the PyTorch port: it never imports JAX, the JAX package
 nor the repository's root scripts, importing it builds nothing, its pipeline pins fp32 and runs on
-the card unless asked for the CPU, and chip_smoke.py has no CPU path."""
+the card unless asked for the CPU, every entry reaches the card through
+``runtime.resolve_device``, and chip_smoke.py has no CPU path."""
 import ast
 import glob
 import os
@@ -198,6 +199,90 @@ def test_pipeline_defaults_to_the_card():
                np.eye(3, dtype=np.float32)[None],
                generator=torch.Generator().manual_seed(0))
     assert out.poses.device.type == "cpu" and out.poses.shape == (1, 3, 4)
+
+
+class _Refused(Exception):
+    """Raised by the stand-in for ``runtime.resolve_device``."""
+
+
+# every caller of ``runtime.resolve_device``, by the name it passes
+CARD_RULE_SITES = (
+    "PosePipeline", "LocalFeatureObjectDetector", "LoFTRObjectDetector",
+    "BATracker", "PoseServer", "init_train_state", "train", "run_local",
+    "bench", "profile_stages", "bench_serving", "bench_tracker",
+    "bench_train", "run_sfm", "extract_to_h5", "match_pairs_to_h5",
+    "verify_matches", "triangulate_from_h5", "run_bundle_adjuster")
+
+
+def _entry_sites():
+    """{who: call(tmp_path)}: each call asks for the card, as little work
+    as possible ahead of the rule."""
+    from onepose_tpu_torch import (bench, bench_serving, bench_tracker,
+                                   bench_train, detector, pipeline,
+                                   profile_stages, serving, tracker)
+    from onepose_tpu_torch.config import Config
+    from onepose_tpu_torch.parallel import launch
+    from onepose_tpu_torch.sfm import (extract, global_ba, match, runner,
+                                       triangulate)
+    from onepose_tpu_torch.train import entry, trainer
+
+    def server(tmp):
+        sp, gats, db = _tiny_pipeline_args(np.random.default_rng(0))
+        serving.PoseServer(sp, gats, {"obj": db}, device="cuda")
+
+    return {
+        "PosePipeline": lambda tmp: pipeline.PosePipeline(
+            None, None, None, device="cuda"),
+        "LocalFeatureObjectDetector":
+            lambda tmp: detector.LocalFeatureObjectDetector(
+                None, None, [], device="cuda"),
+        "LoFTRObjectDetector": lambda tmp: detector.LoFTRObjectDetector(
+            None, [], device="cuda"),
+        "BATracker": lambda tmp: tracker.BATracker(device="cuda"),
+        "PoseServer": server,
+        "init_train_state": lambda tmp: trainer.init_train_state(
+            None, device="cuda"),
+        "train": lambda tmp: entry.train(Config({"device": "cuda"})),
+        "run_local": lambda tmp: launch.run_local(print, 2, device="cuda"),
+        "bench": lambda tmp: bench.run(device="cuda"),
+        "profile_stages": lambda tmp: profile_stages.run(device="cuda"),
+        "bench_serving": lambda tmp: bench_serving.run(
+            bench_serving.parser().parse_args(["--device", "cuda"])),
+        "bench_tracker": lambda tmp: bench_tracker.run(
+            bench_tracker.parser().parse_args(["--device", "cuda"])),
+        "bench_train": lambda tmp: bench_train.run(str(tmp), device="cuda"),
+        "run_sfm": lambda tmp: runner.run_sfm(
+            [], str(tmp), None, None, {}, {}, {}, device="cuda"),
+        "extract_to_h5": lambda tmp: extract.extract_to_h5(
+            None, [], str(tmp / "f.h5"), device="cuda"),
+        "match_pairs_to_h5": lambda tmp: match.match_pairs_to_h5(
+            None, [], str(tmp / "f.h5"), str(tmp / "m.h5"), device="cuda"),
+        "verify_matches": lambda tmp: triangulate.verify_matches(
+            str(tmp / "f.h5"), str(tmp / "m.h5"), [], {}, {}, device="cuda"),
+        "triangulate_from_h5": lambda tmp: triangulate.triangulate_from_h5(
+            "", "", [], {}, {}, {}, str(tmp / "model"),
+            verification=({}, [], {}), device="cuda"),
+        "run_bundle_adjuster": lambda tmp: global_ba.run_bundle_adjuster(
+            str(tmp), device="cuda"),
+    }
+
+
+@pytest.mark.parametrize("who", CARD_RULE_SITES)
+def test_entries_reach_the_one_card_rule(who, tmp_path, monkeypatch):
+    """Every entry that defaults to the card asks ``runtime.resolve_device``
+    first, naming itself: with the rule replaced by one that refuses, each
+    refuses before it does any work."""
+    from onepose_tpu_torch import runtime
+
+    def refuse(device, who):
+        raise _Refused(torch.device(device).type, who)
+
+    monkeypatch.setattr(runtime, "resolve_device", refuse)
+    sites = _entry_sites()
+    assert tuple(sites) == CARD_RULE_SITES
+    with pytest.raises(_Refused) as refused:
+        sites[who](tmp_path)
+    assert refused.value.args == ("cuda", who)
 
 
 def test_precision_pinned_after_pipeline_is_built():
